@@ -6,15 +6,34 @@
 Phases, each printing its own line with its seconds:
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
-2. build: nvcc compiles the window kernels from the checkout's sources;
+2. build: nvcc compiles the window kernels (density, forces, field) from
+   the checkout's sources, with ptxas's registers and spills for each;
 3. kernels against their plain PyTorch versions on one relayout of the
-   100k pool, with times for both;
+   100k pool (the field kernel through the renderer's frame inputs at
+   64x128), with times for both, each kernel's window lanes
+   (sum of min(w_len, cap), and the distinct candidate rows they touch)
+   and its bound on this card;
 4. the 100k pool (bench.py's operating point) through WindowEngine: prime,
    64 ticks at resort_every=1, 384 ticks at resort_every=64; the launch
    counters must grow by exactly one per tick; the plain path's ms/tick on
    a short run beside the kernel path's;
 5. the 3k-particle C golden drop, all 2000 steps through the kernels;
-6. the 1M pool: 64 ticks at resort_every=64.
+6. the 1M pool: 64 ticks at resort_every=64;
+7. render: render_from_frame ms per frame at 64x128 and 256x128 on the
+   100k and 1M pools' last relayout frames (CUDA events, 20 frames after
+   one warm-up), render overflow 0;
+8. golden_render: WindowRenderer.render through the field kernel on the C
+   golden positions (269 drop and 3k drop) against the C framebuffers;
+9. runner, the live path a user runs: ``cli run`` on the 100k pool with a
+   file display, about 30 dispatches of one 60 Hz frame each: one frame
+   written and one field launch per dispatch, no recovery, overflow and
+   stale 0, the floor row lit in every frame, the launch counters set to
+   0 just before and read just after; then ``cli bench`` on the 1M pool
+   with rendering;
+10. runner_recovery: ``cli run`` on the 100k pool at the CLI defaults,
+   where the startup jets overflow the cap: at least one recovery, one
+   field launch per dispatch run (replays included), one frame written per
+   dispatch less the one each revert drops, overflow and stale 0 at the end.
 
 Then one JSON line that holds every kernel's results, the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -25,9 +44,11 @@ any result.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -38,9 +59,11 @@ HERE = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 
 import pi_sph_fluid_tpu_torch as T  # noqa: E402
+from pi_sph_fluid_tpu_torch import cli  # noqa: E402
 from pi_sph_fluid_tpu_torch.models import engine_v3  # noqa: E402
 from pi_sph_fluid_tpu_torch.ops.window import _build  # noqa: E402
 from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk  # noqa: E402
+from pi_sph_fluid_tpu_torch.render import metaballs_window as mw  # noqa: E402
 from pi_sph_fluid_tpu_torch.utils.profiling import pool_engine  # noqa: E402
 
 G = (0.0, -9.81)
@@ -49,13 +72,28 @@ N_POOL = 100_000        # bench.py:57-66
 N_BIG = 1_000_000       # bench.py:149-169
 GOLDEN_STEPS = 2000     # the whole 3k C golden
 N_WARM, N_R1, N_R64, N_PLAIN = 8, 64, 384, 16
+N_FRAMES = 20           # render_from_frame timings, after one warm-up
+SHAPES = ((64, 128), (256, 128))
+RUN_DISPATCHES = 30     # cli run: dispatches of one 60 Hz frame each
+RECOVERY_DISPATCHES = 24  # cli run at the defaults: 0.4 s, past the startup jets
 # wrapper (with its launch counter) and the TPU kernel it replaces
 KERNELS = {
     "density_window": (wk.density_window,
                        "pi_sph_fluid_tpu/ops/pallas/window_kernels.py:192"),
     "forces_window": (wk.forces_window,
                       "pi_sph_fluid_tpu/ops/pallas/window_kernels.py:317"),
+    "field_window": (mw.field_window,
+                     "pi_sph_fluid_tpu/render/metaballs_window.py:164"),
 }
+# the card's peaks (NVIDIA H100 SXM data sheet, at a 700 W limit): device
+# memory bytes/s and float32 operations/s outside the tensor cores
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+# float32 operations per pair lane (sqrt, max and select counted as one)
+# and device-memory bytes per query row (inputs read, outputs written once)
+# and per window lane; a pixel needs only its x and y of the query row
+COST = {"density_window": dict(flops=16, row_bytes=32 + 32 + 8, lane_bytes=16),
+        "forces_window": dict(flops=39, row_bytes=32 + 32 + 8 + 32 + 8, lane_bytes=32),
+        "field_window": dict(flops=17, row_bytes=8 + 4, lane_bytes=16)}
 
 
 def _phase(name: str, t0: float, **info) -> None:
@@ -92,6 +130,32 @@ def _counts() -> dict:
 
 def _gravity(n: int) -> np.ndarray:
     return np.tile(np.float32(G), (n, 1))
+
+
+def _lanes(w_start, w_len, cap: int, L: int) -> tuple[int, int]:
+    """(sum of the lanes the kernels compute, min(w_len, cap) clamped to the
+    candidate array as the kernels clamp it; the distinct candidate rows
+    those windows touch)."""
+    s = w_start.reshape(-1).long().clamp(0, L)
+    n = torch.minimum(w_len.reshape(-1).long().clamp(0, cap), L - s).clamp_min(0)
+    delta = torch.zeros(L + 1, dtype=torch.int64, device=s.device)
+    delta.index_add_(0, s, torch.ones_like(s))
+    delta.index_add_(0, s + n, -torch.ones_like(s))
+    return int(n.sum()), int((torch.cumsum(delta, 0)[:L] > 0).sum())
+
+
+def _bound(name: str, n_rows: int, qb: int, w_start, w_len, cap: int, L: int) -> dict:
+    """The kernel's bound on this card for these inputs: the larger of its
+    bytes (query rows, window arrays, each distinct candidate row once) over
+    the memory rate and its pair-lane operations over the float32 rate."""
+    c = COST[name]
+    lanes, rows = _lanes(w_start, w_len, cap, L)
+    nbytes = n_rows * c["row_bytes"] + w_start.numel() * 8 + rows * c["lane_bytes"]
+    flops = qb * lanes * c["flops"]
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS
+    return dict(window_lanes=lanes, candidate_rows=rows, bytes=nbytes, flops=flops,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def _check_state(sim, stats, what: str) -> None:
@@ -157,14 +221,42 @@ def compare_kernels(eng, fluid, results: dict) -> None:
                               cfg, spec, 0.0, 1.0)
     assert torch.equal(pk0[:, 2:4], pk[:, 2:4]), "priming pass moved u, v"
 
+    # the field kernel over the renderer's inputs for this frame (64x128)
+    rend = mw.WindowRenderer(eng, *SHAPES[0])
+    zero = torch.zeros_like(pk[:, 0])
+    sim = T.PackedSim(packed=pk, ids=pk[:, 7].int(), au=zero, av=zero)
+    geo_r, ws_r, wl_r, ov_r = rend.frame_inputs(sim, (ctx.trip_src, ctx.T))
+    assert int(ov_r) == 0, f"render overflow {int(ov_r)}"
+    r_args = (rend.q_packed, geo_r, ws_r, wl_r, cfg, rend.reuse_spec)
+    fk = mw.field_window(*r_args) * rend.field_scale
+    fp = mw.field_window_plain(*r_args) * rend.field_scale
+    _sync()
+    dfield = (fk - fp).abs()
+    assert bool((dfield <= 5e-5 + 1e-5 * fp.abs()).all()), \
+        f"field: max |d_field| {float(dfield.max())}"
+    confident = (fp - 1.0).abs() > 1e-3
+    assert torch.equal((fk >= 1.0)[confident], (fp >= 1.0)[confident]), \
+        "field: a lit pixel away from the threshold differs"
+
     results["density_window"].update(
         max_abs_err=float((rho_k - rho_p).abs().max()),
         ms=_ms(lambda: wk.density_window(*d_args), 50),
-        plain_ms=_ms(lambda: wk.density_window_plain(*d_args), 5))
+        plain_ms=_ms(lambda: wk.density_window_plain(*d_args), 5),
+        **_bound("density_window", spec.n_layout, spec.qb, ctx.w_start,
+                 ctx.flen, spec.cap, geo_d.shape[0]))
     results["forces_window"].update(
         max_abs_err=float(dacc.max()),
         ms=_ms(lambda: wk.forces_window(*f_args), 50),
-        plain_ms=_ms(lambda: wk.forces_window_plain(*f_args), 5))
+        plain_ms=_ms(lambda: wk.forces_window_plain(*f_args), 5),
+        **_bound("forces_window", spec.n_layout, spec.qb, ctx.w_start,
+                 ctx.flen, spec.cap, geo_f.shape[0]))
+    rspec = rend.reuse_spec
+    results["field_window"].update(
+        max_abs_err=float(dfield.max()),
+        ms=_ms(lambda: mw.field_window(*r_args), 50),
+        plain_ms=_ms(lambda: mw.field_window_plain(*r_args), 5),
+        **_bound("field_window", rspec.n_layout, rspec.qb, ws_r, wl_r,
+                 rspec.cap, geo_r.shape[0]))
     print(f"  density: max rel d_rho {rel_rho:.3e}, max |d_p| {float(dp.max()):.3e} Pa; "
           f"kernel {results['density_window']['ms']:.4f} ms, "
           f"plain {results['density_window']['plain_ms']:.4f} ms", flush=True)
@@ -172,6 +264,15 @@ def compare_kernels(eng, fluid, results: dict) -> None:
           f"max |d_uv| {float(duv.max()):.3e} m/s; "
           f"kernel {results['forces_window']['ms']:.4f} ms, "
           f"plain {results['forces_window']['plain_ms']:.4f} ms", flush=True)
+    print(f"  field (64x128, cap {rspec.cap}): max |d_field| {float(dfield.max()):.3e}; "
+          f"kernel {results['field_window']['ms']:.4f} ms, "
+          f"plain {results['field_window']['plain_ms']:.4f} ms", flush=True)
+    for name in KERNELS:
+        r = results[name]
+        print(f"  {name}: sum min(w_len, cap) {r['window_lanes']} lanes, "
+              f"{r['candidate_rows']} distinct candidate rows, {r['bytes']} B, "
+              f"{r['flops']} FLOP: bound {r['bound_ms']:.6f} ms by {r['bound_by']}",
+              flush=True)
 
 
 def run_pool(eng, fluid) -> dict:
@@ -181,13 +282,13 @@ def run_pool(eng, fluid) -> dict:
     _reset_counts()
     sim0 = eng.prime(fluid, G)
     step = eng.make_multi_step(resort_every=1)
-    sticky = eng.make_multi_step(resort_every=64)
+    sticky = eng.make_multi_step(resort_every=64, return_frame=True)
     step(sim0, _gravity(N_WARM))
     out = {}
     for name, multi, n in (("r1", step, N_R1), ("r64", sticky, N_R64)):
         _sync()
         t0 = time.perf_counter()
-        sim, st = multi(sim0, _gravity(n))
+        sim, st, *frame = multi(sim0, _gravity(n))
         _sync()
         wall = time.perf_counter() - t0
         _check_state(sim, st, name)
@@ -195,9 +296,11 @@ def run_pool(eng, fluid) -> dict:
         out[f"{name}_ms_per_tick"] = wall / n * 1e3
     counts = _counts()
     ticks = 1 + N_WARM + N_R1 + N_R64
-    assert all(c == ticks for c in counts.values()), \
+    assert counts["density_window"] == counts["forces_window"] == ticks, \
         f"launch counts {counts}, expected {ticks} each (one per tick)"
+    assert counts["field_window"] == 0, counts
     out["launches"] = counts
+    out["last"] = (sim, frame[0])     # the r64 run's state and its frame
     # the same ticks through the plain versions, for comparison only
     with mock.patch.object(engine_v3, "density_window", wk.density_window_plain), \
             mock.patch.object(engine_v3, "forces_window", wk.forces_window_plain):
@@ -244,7 +347,7 @@ def run_golden() -> dict:
 
 
 def run() -> dict:
-    """Phases 2-6 on the card; returns the per-kernel results."""
+    """Phases 2-10 on the card; returns the per-kernel results."""
     t0 = time.perf_counter()
     _, log = _build.library()
     ptxas = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
@@ -262,10 +365,8 @@ def run() -> dict:
 
     t0 = time.perf_counter()
     pool = run_pool(eng, fluid)
-    for name in KERNELS:
-        results[name]["launches"] = pool["launches"][name]
-    _phase("pool_100k", t0, n_fluid=fluid.n,
-           **{k: v for k, v in pool.items() if k != "launches"})
+    frames = {"100k": (eng,) + pool.pop("last")}
+    _phase("pool_100k", t0, n_fluid=fluid.n, **pool)
 
     t0 = time.perf_counter()
     worst = run_golden()
@@ -274,16 +375,157 @@ def run() -> dict:
     t0 = time.perf_counter()
     big, big_fluid = pool_engine(N_BIG, DEV)
     sim = big.prime(big_fluid, G)
-    multi = big.make_multi_step(resort_every=64)
+    multi = big.make_multi_step(resort_every=64, return_frame=True)
     _sync()
     t1 = time.perf_counter()
-    sim, st = multi(sim, _gravity(64))
+    sim, st, frame = multi(sim, _gravity(64))
     _sync()
     wall = time.perf_counter() - t1
     _check_state(sim, st, "1M pool")
+    frames["1M"] = (big, sim, frame)
     _phase("pool_1m", t0, n_fluid=big_fluid.n, ms_per_step=wall / 64 * 1e3,
            ps_per_s=big_fluid.n * 64 / wall)
+
+    t0 = time.perf_counter()
+    _phase("render", t0, **run_render(frames))
+    del frames, big, sim
+
+    t0 = time.perf_counter()
+    _phase("golden_render", t0, agreement=json.dumps(run_golden_render()))
+
+    t0 = time.perf_counter()
+    info = run_runner()
+    for name in KERNELS:
+        results[name]["launches"] = info["launches"][name]
+        results[name]["library_ms"] = None
+    _phase("runner", t0, **info)
+
+    t0 = time.perf_counter()
+    _phase("runner_recovery", t0, **run_recovery())
     return results
+
+
+def run_render(frames: dict) -> dict:
+    """render_from_frame ms per frame on each pool's last relayout frame (a
+    64-tick sticky group, so the frame is 63 ticks stale as in the runner
+    at resort_every=64), both raster shapes.  The pool fills 85% of the
+    height (models/scene.py:119-131): the top page stays dark, the bottom
+    page is lit."""
+    out = {}
+    for size, (eng, sim, frame) in frames.items():
+        for rows, cols in SHAPES:
+            rend = mw.WindowRenderer(eng, rows, cols)
+            fb, ov = rend.render_from_frame(sim, frame)
+            assert int(ov) == 0, f"{size} {rows}x{cols}: render overflow {int(ov)}"
+            img = T.unpack_framebuffer(fb.cpu().numpy(), rows, cols)
+            assert not img[:8].any() and img[-8:].any(), f"{size} {rows}x{cols}: frame"
+            out[f"{size}_{rows}x{cols}_ms"] = _ms(
+                lambda: rend.render_from_frame(sim, frame), N_FRAMES)
+            out[f"{size}_{rows}x{cols}_cap"] = rend.reuse_spec.cap
+    return out
+
+
+def run_golden_render() -> dict:
+    """WindowRenderer.render through the field kernel on the C golden
+    positions against the C framebuffer dumps: >= 99.5% of the pixels agree
+    (test_render_window.py:102, test_parity_3k.py:194)."""
+    out = {}
+    for golden, r, dumps in (("golden_drop.npz", 0.075, (20, 50, 100, 150, 200)),
+                             ("golden_drop_3k.npz", 0.0226, (10, 20))):
+        g = np.load(HERE / "tests" / "fixtures" / golden)
+        cfg = T.SPHConfig(r=r)
+        _, braw = T.build_drop_scene(cfg, DEV)
+        b, bg = T.prepare_boundary(braw, cfg)
+        eng = T.WindowEngine(cfg, b, bg, g["states"].shape[1], DEV)
+        rend = mw.WindowRenderer(eng)
+        before = mw.field_window.launches
+        for dump in dumps:
+            fl = T.FluidState(*(torch.tensor(g["states"][dump][:, j], device=DEV)
+                                for j in range(7)))
+            packed = eng._initial_packed(fl)
+            zero = torch.zeros_like(packed[:, 0])
+            fb, ov = rend.render(T.PackedSim(packed=packed, ids=packed[:, 7].int(),
+                                             au=zero, av=zero))
+            assert int(ov) == 0, f"{golden} dump {dump}: overflow {int(ov)}"
+            agree = float((T.unpack_framebuffer(fb.cpu().numpy())
+                           == T.unpack_framebuffer(g["framebuffers"][dump])).mean())
+            assert agree >= 0.995, f"{golden} dump {dump}: agreement {agree}"
+            out[f"{g['states'].shape[1]}@{int(g['steps'][dump])}"] = agree
+        assert mw.field_window.launches == before + len(dumps)
+    return out
+
+
+def _cli_run(n_dispatch: int, dt_factor: float, *opts: str):
+    """``cli run`` on the 100k pool with a file display for ``n_dispatch``
+    dispatches of the default K (one 60 Hz frame of ticks, rounded up to the
+    default resort_every=8; the resort ladder on), the launch counters set
+    to 0 just before and read just after.  Returns (RunResult, K, the
+    counts, the frames written, unpacked); every frame shows the pool, its
+    floor row lit."""
+    r = math.sqrt(6.35 / N_POOL)
+    dt = T.SPHConfig(r=r, dt_factor=dt_factor).dt
+    k = -(-int(round(1.0 / (60.0 * dt))) // 8) * 8
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "frames.bin"
+        _reset_counts()
+        res = cli.main(["run", "--scene", "pool", "--r", repr(r), "--device", "cuda",
+                        "--display", f"file:{path}", "--dt-factor", repr(dt_factor),
+                        "--seconds", repr(n_dispatch * k * dt), *opts])
+        counts = _counts()
+        frames = np.fromfile(path, np.uint8).reshape(-1, 1024)
+    assert res.steps == n_dispatch * k, (res.steps, n_dispatch, k)
+    assert res.reporter.total_overflow == 0, res.reporter.total_overflow
+    assert res.reporter.total_stale == 0, res.reporter.total_stale
+    assert all(c > 0 for c in counts.values()), counts
+    # one render per dispatch run, replays included; a revert drops the one
+    # frame it had pending
+    assert counts["field_window"] == res.dispatches, (counts, res.dispatches)
+    assert frames.shape[0] == res.dispatches - res.recoveries, \
+        f"{frames.shape[0]} frames, {res.dispatches} dispatches, {res.recoveries} reverts"
+    imgs = [T.unpack_framebuffer(fb) for fb in frames]
+    assert all(img[-1].any() for img in imgs), "a frame with an unlit floor row"
+    assert not imgs[0][:8].any(), "first frame: top page lit"
+    return res, k, counts, imgs
+
+
+def run_runner() -> dict:
+    """The live path through the CLI, as a user starts it: ``run`` on the
+    100k pool for RUN_DISPATCHES dispatches; then ``bench`` on the 1M pool
+    with rendering.
+
+    The fresh pool collapses into its 12 cm side gaps in the first 0.3 s
+    (jets near 27 m/s on an H100), so this run takes the CLI's advice for
+    long fine-resolution runs, --dt-factor 0.4, and starts at the runner's
+    cap ceiling, 1024: no recovery, one frame per dispatch.  The defaults
+    go through the recoveries (run_recovery)."""
+    res, k, counts, imgs = _cli_run(RUN_DISPATCHES, 0.4, "--cap", "1024")
+    assert res.recoveries == 0, f"{res.recoveries} recoveries"
+    assert res.dispatches == RUN_DISPATCHES == len(imgs), (res.dispatches, len(imgs))
+    # the top page (rows 0-7) is dark until the wall run-up reaches it
+    # (after ~0.22 s, 13 frames, on an H100): under a fifth lit in the last
+    top_lit = float(imgs[-1][:8].mean())
+    assert top_lit < 0.2, f"last frame: {top_lit:.3f} of the top page lit"
+    bench = cli.main(["bench", "--n", str(N_BIG), "--steps", "64", "--render"])
+    assert bench["neighbor_overflow"] == 0 and bench["stale_drift"] == 0, bench
+    return dict(k=k, dispatches=res.dispatches, frames=len(imgs),
+                last_top_page_lit=top_lit,
+                wall_s=res.wall_s, ps_per_s=res.particle_steps_per_s,
+                worst_speed=res.reporter.worst_speed, launches=counts,
+                bench_1m_render_ps_per_s=bench["value"])
+
+
+def run_recovery() -> dict:
+    """``cli run`` on the 100k pool at the CLI defaults (--cap 384,
+    --dt-factor 1, --max-cap 1024) through the startup jets: the runner
+    must recover (grow the cap or halve resort_every, revert to the last
+    clean report, replay), render every replayed dispatch through the field
+    kernel, and end with overflow and stale 0."""
+    res, k, counts, imgs = _cli_run(RECOVERY_DISPATCHES, 1.0)
+    assert res.recoveries > 0, "no recovery at the CLI defaults"
+    assert res.dispatches > RECOVERY_DISPATCHES, res.dispatches
+    return dict(k=k, dispatches=RECOVERY_DISPATCHES, run=res.dispatches,
+                recoveries=res.recoveries, frames=len(imgs), launches=counts,
+                wall_s=res.wall_s, worst_speed=res.reporter.worst_speed)
 
 
 def main() -> int:

@@ -4,7 +4,8 @@
 ``GridContext`` or ``PackedSim(packed, ids, au, av)`` (or any mapping of
 field name to array) into the port's NamedTuple of tensors on ``device``;
 ``to_numpy`` gives the fields back as numpy arrays, which the JAX package's
-constructors accept.  Nothing here imports JAX: ``np.asarray`` reads a JAX
+constructors accept; ``frame`` carries an engine's relayout frame
+``(trip_src, T)`` across, so that both renderers can draw from the same one.  Nothing here imports JAX: ``np.asarray`` reads a JAX
 array through the buffer protocol.
 """
 
@@ -18,7 +19,7 @@ from .ops.grid import GridContext
 from .state import BoundaryState, FluidState
 
 __all__ = ["to_torch", "to_numpy", "fluid_state", "boundary_state",
-           "grid_context", "packed_sim"]
+           "grid_context", "packed_sim", "frame"]
 
 
 def _field(src, name):
@@ -51,3 +52,10 @@ def grid_context(src, device) -> GridContext:
 
 def packed_sim(src, device) -> PackedSim:
     return to_torch(PackedSim, src, device)
+
+
+def frame(src, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A JAX ``(trip_src, T)`` relayout frame as the port's int32 tensors."""
+    trip_src, T = src
+    return (torch.as_tensor(np.array(trip_src, np.int32), device=device),
+            torch.as_tensor(np.array(T, np.int32), device=device))

@@ -1,5 +1,6 @@
 // Per-query-block window kernels for Hopper (sm_90a): SPH density + Tait EOS,
-// and SPH forces + the trailing half-kick.
+// SPH forces + the trailing half-kick, and the metaball field of the display
+// pixels (queries are pixel centers, candidates the fluid).
 //
 // Built by pi_sph_fluid_tpu_torch/ops/window/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -18,8 +19,9 @@
 //
 // Threads: one CUDA block per query block (blockDim = 32 * qb), one warp per
 // query.  The block stages its window (at most cap candidates) in shared
-// memory once, every warp strides its lanes over it, and a __shfl_xor_sync
-// butterfly reduces the warp's partial sums; lane 0 runs the per-query
+// memory once (the field kernel in fixed chunks), every warp strides its
+// lanes over it, and a __shfl_xor_sync butterfly reduces the warp's partial
+// sums; lane 0 runs the per-query
 // epilogue.  Pad queries (m = 0) produce 0/0 and inf lanes; their outputs are
 // replaced by a conditional select, never multiplied by a mask.
 
@@ -175,6 +177,61 @@ __global__ void forces_window_kernel(
   }
 }
 
+// Lanes of a pixel window staged in shared memory at once (8 KB).
+constexpr int FIELD_CHUNK = 512;
+
+// Replaces _field_kernel (pi_sph_fluid_tpu/render/metaballs_window.py:164).
+//
+// Per pixel, the unweighted metaball sum over its block's window of fluid
+// candidates [x, y, m, 0]:
+//   out_i = sum_j [m_j > 0] (1 - r/2H)^4_+ (1 + 2r/H)
+// The caller scales by norm / W(px/2) and thresholds at 1.  The validity gate
+// is a select, as jnp.where is in the TPU kernel: a NaN mass adds 0, a NaN
+// position propagates (0 * NaN).
+//
+// Bound on this card: bytes.  The window rows (16 B a lane, Sigma min(w_len,
+// cap) lanes over the blocks, fewer distinct rows where windows overlap) plus
+// 12 B a pixel: its x and y (the float4 load below reads 16) and the output;
+// ~17 FP32 operations a pair lane against 16 B shared by the block's qb
+// pixels.  On an H100 (3.35 TB/s) that is 0.99 us for the 100k pool's 64x128
+// frame, 3.3 MB (chip_smoke.py reckons it from each run's windows).  The
+// pixel cap grows with the particle count (512 lanes on the drop, 3584 at
+// 4M), past what a block can stage statically, so the window streams through
+// one FIELD_CHUNK of shared memory: every cap launches with the same 8 KB and
+// no opt-in.
+__global__ void field_window_kernel(
+    const float4* __restrict__ q, const float4* __restrict__ geo,
+    const int* __restrict__ w_start, const int* __restrict__ w_len,
+    float* __restrict__ out, int cap, int L, float half_inv_h,
+    float two_inv_h) {
+  __shared__ float4 s_cand[FIELD_CHUNK];
+  int start;
+  const int n = window(w_start, w_len, cap, L, &start);
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const float4 q0 = q[2 * i];  // x, y, 0, 0
+  float acc = 0.f;
+  for (int c0 = 0; c0 < n; c0 += FIELD_CHUNK) {  // n is the block's: uniform
+    const int m = min(FIELD_CHUNK, n - c0);
+    __syncthreads();  // the previous chunk is consumed
+    for (int t = threadIdx.x; t < m; t += blockDim.x)
+      s_cand[t] = geo[start + c0 + t];
+    __syncthreads();
+    for (int j = lane; j < m; j += 32) {
+      const float4 c = s_cand[j];  // x, y, m, 0
+      const float dx = q0.x - c.x;
+      const float dy = q0.y - c.y;
+      const float r = sqrtf(dx * dx + dy * dy);
+      const float t1 = max0(1.f - half_inv_h * r);
+      const float t1sq = t1 * t1;
+      const float valid = c.z > 0.f ? 1.f : 0.f;
+      acc += (valid * (t1sq * t1sq)) * (1.f + two_inv_h * r);
+    }
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) out[i] = acc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -207,6 +264,17 @@ int forces_window(const void* q, const void* geo8, const void* rp,
         (const float4*)geo, (const int*)w_start, (const int*)w_len,
         (float4*)pk_next, (float2*)acc, cap, L, gx, gy, half_dt, damp,
         half_inv_h, two_inv_h, eps_h2, nach, k_ap4, gfac);
+  }
+  return (int)cudaGetLastError();
+}
+
+int field_window(const void* q, const void* geo, const void* w_start,
+                 const void* w_len, void* out, int n_blocks, int qb, int cap,
+                 int L, float half_inv_h, float two_inv_h, void* stream) {
+  if (n_blocks > 0) {
+    field_window_kernel<<<n_blocks, 32 * qb, 0, (cudaStream_t)stream>>>(
+        (const float4*)q, (const float4*)geo, (const int*)w_start,
+        (const int*)w_len, (float*)out, cap, L, half_inv_h, two_inv_h);
   }
   return (int)cudaGetLastError();
 }

@@ -172,21 +172,26 @@ class WindowEngine:
         return pk
 
     # ------------------------------------------------------------------
+    def _tick(self, sim: PackedSim, g, damp: float):
+        """One tick; also returns the relayout's context."""
+        pk, ctx, overflow = self._relayout(self._kick_drift(sim))
+        pk, au, av = self._pair_passes(pk, ctx, _host_gravity(g),
+                                       self.half_dt, damp)
+        sim = self._sim(pk, au, av)
+        return sim, self.stats(sim, overflow), ctx
+
     def make_step(self, damping: float = 1.0):
         """One tick (kick-drift-forces-kick, `pi_sph_fluid.c:614-644`):
         ``step(sim, g) -> (sim, StepStats)``."""
         damp = float(damping)
 
         def step(sim: PackedSim, g):
-            pk, ctx, overflow = self._relayout(self._kick_drift(sim))
-            pk, au, av = self._pair_passes(pk, ctx, _host_gravity(g),
-                                           self.half_dt, damp)
-            sim = self._sim(pk, au, av)
-            return sim, self.stats(sim, overflow)
+            return self._tick(sim, g, damp)[:2]
 
         return step
 
-    def make_multi_step(self, damping: float = 1.0, resort_every: int = 1):
+    def make_multi_step(self, damping: float = 1.0, resort_every: int = 1,
+                        return_frame: bool = False):
         """``multi_step(sim, g_trace) -> (sim, StepStats[K])`` over a (K, 2)
         gravity trace (`engine_v3.py:343-483`).
 
@@ -195,17 +200,26 @@ class WindowEngine:
         real particles displaced by more than 0.3*H since the group's layout
         (``stale``).  Stats are sampled: the fresh tick reports its own, the
         carried ticks report zeros except the last, which reports the group
-        maxima of per-particle running rho and speed^2 maxima."""
-        damp = float(damping)
-        if resort_every <= 1:
-            step = self.make_step(damping)
+        maxima of per-particle running rho and speed^2 maxima.
 
+        ``return_frame=True`` also returns the last relayout's frame
+        ``(trip_src, T)`` for render/metaballs_window.WindowRenderer
+        .render_from_frame: ``(sim, stats, frame)``.  The frame is
+        ``resort_every - 1`` ticks stale against the returned state, the
+        fringe bound the physics runs under (`engine_v3.py:352-357`)."""
+        damp = float(damping)
+
+        def finish(sim, stats, ctx):
+            out = (sim, _stack(stats))
+            return out + ((ctx.trip_src, ctx.T),) if return_frame else out
+
+        if resort_every <= 1:
             def multi_step(sim: PackedSim, g_trace):
                 stats = []
                 for g in _host_gravity(g_trace):
-                    sim, st = step(sim, g)
+                    sim, st, ctx = self._tick(sim, g, damp)
                     stats.append(st)
-                return sim, _stack(stats)
+                return finish(sim, stats, ctx)
 
             return multi_step
 
@@ -241,7 +255,7 @@ class WindowEngine:
                 stats.append(StepStats(max_rho_error_pct=z, max_speed=z,
                                        neighbor_overflow=zero, stale=s))
             stats.append(last)
-            return sim, stats
+            return sim, stats, ctx
 
         def multi_step(sim: PackedSim, g_trace):
             g_trace = _host_gravity(g_trace)
@@ -251,9 +265,9 @@ class WindowEngine:
                                  f"resort_every={k}")
             stats = []
             for i in range(0, n, k):
-                sim, st = group(sim, g_trace[i:i + k])
+                sim, st, ctx = group(sim, g_trace[i:i + k])
                 stats += st
-            return sim, _stack(stats)
+            return finish(sim, stats, ctx)
 
         return multi_step
 

@@ -24,6 +24,7 @@ __all__ = [
     "build_drop_scene",
     "build_dam_break_scene",
     "build_pool_scene",
+    "pixel_centers",
 ]
 
 
@@ -129,3 +130,16 @@ def build_pool_scene(cfg: SPHConfig, device, fill_x: float = 0.97,
         return (x >= max(gap, x_lo)) & (x <= x_hi) & (y >= gap) & (y < y_max)
 
     return build_fluid(cfg, predicate, device), build_box_boundary(cfg, device)
+
+
+def pixel_centers(cfg: SPHConfig, rows: int = 64, cols: int = 128) -> tuple[np.ndarray, np.ndarray]:
+    """Centers of the display pixels as pseudo-particle coordinates
+    (`pi_sph_fluid.c:570-577`, `scene.py:154-165`): row 0 is the top of the
+    screen, y flipped.  Host numpy float32, rounded as the JAX package
+    rounds them.  Returns (px, py), each (rows*cols,), index i*cols + j."""
+    i = np.arange(rows, dtype=np.float64)
+    j = np.arange(cols, dtype=np.float64)
+    gj, gi = np.meshgrid(j, i)  # shape (rows, cols)
+    px = ((gj + 0.5) * float(cfg.width) / cols).astype(np.float32)
+    py = ((rows - (gi + 0.5)) * float(cfg.height) / rows).astype(np.float32)
+    return px.ravel(), py.ravel()

@@ -28,6 +28,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "density_window": [_P] * 6 + [_I] * 4 + [_F] * 5 + [_P],
     "forces_window": [_P] * 8 + [_I] * 4 + [_F] * 10 + [_P],
+    "field_window": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
 }
 
 

@@ -12,7 +12,9 @@
 
 Run as a script on the GPU, it measures the pool at 100k and 1M particles
 (bench.py's operating points) at resort_every=1 and 64: the spread of
-ms/tick over 5 repeats, then where the device time of a tick goes:
+ms/tick over 5 repeats, then where the device time of a tick goes, and
+where the time of a rendered frame goes (``render_from_frame`` at 64x128
+and 256x128 on the r64 run's last frame, 20 frames):
 
     python -m pi_sph_fluid_tpu_torch.utils.profiling
 """
@@ -32,10 +34,12 @@ from ..config import SPHConfig
 from ..models.boundary import prepare_boundary
 from ..models.engine_v3 import WindowEngine
 from ..models.scene import build_pool_scene
+from ..render.metaballs_window import WindowRenderer
 
 __all__ = ["pool_engine", "throughput", "device_breakdown"]
 
 G = (0.0, -9.81)
+N_FRAMES = 20           # rendered frames per breakdown
 
 
 def pool_engine(n_target: int, device, **engine_kw):
@@ -112,7 +116,7 @@ def main() -> None:
         eng, fluid = pool_engine(n_target, dev)
         sim0 = eng.prime(fluid, G)
         cells = {"r1": (eng.make_multi_step(resort_every=1), 64, 16),
-                 "r64": (eng.make_multi_step(resort_every=64),
+                 "r64": (eng.make_multi_step(resort_every=64, return_frame=True),
                          384 if n_target < 500_000 else 64, 64)}
         spread = {}
         for name, (multi, n, _) in cells.items():
@@ -122,15 +126,26 @@ def main() -> None:
         print(json.dumps({"n_fluid": fluid.n, "n_layout": eng.n_layout,
                           "L": eng.spec.L, **spread}), flush=True)
         for name, (multi, _, n) in cells.items():
-            b = device_breakdown(lambda: multi(sim0, _gravity(n)), dev)
-            print(f"== {fluid.n} {name}: {n} ticks, traced wall "
-                  f"{b['wall_s'] * 1e3 / n:.4f} ms/tick, device busy "
-                  f"{b['busy_s'] * 1e3 / n:.4f} ms/tick "
-                  f"({100 * b['busy_s'] / b['wall_s']:.1f}% of wall), "
-                  f"syncs/tick {b['syncs'] / n:.2f}", flush=True)
-            for key, s, count in b["rows"][:14]:
-                print(f"   {s * 1e3 / n:8.4f} ms/tick {100 * s / b['busy_s']:5.1f}%"
-                      f"  x{count / n:5.2f}/tick  {key[:90]}", flush=True)
+            _print_breakdown(f"{fluid.n} {name}: {n} ticks", "tick", n,
+                             device_breakdown(lambda: multi(sim0, _gravity(n)), dev))
+        sim, _, frame = cells["r64"][0](sim0, _gravity(64))
+        for rows in (64, 256):
+            rend = WindowRenderer(eng, rows, 128)
+            rend.render_from_frame(sim, frame)
+            b = device_breakdown(lambda: [rend.render_from_frame(sim, frame)
+                                          for _ in range(N_FRAMES)], dev)
+            _print_breakdown(f"{fluid.n} render_from_frame {rows}x128: "
+                             f"{N_FRAMES} frames", "frame", N_FRAMES, b)
+
+
+def _print_breakdown(title: str, unit: str, n: int, b: dict) -> None:
+    print(f"== {title}, traced wall {b['wall_s'] * 1e3 / n:.4f} ms/{unit}, "
+          f"device busy {b['busy_s'] * 1e3 / n:.4f} ms/{unit} "
+          f"({100 * b['busy_s'] / b['wall_s']:.1f}% of wall), "
+          f"syncs/{unit} {b['syncs'] / n:.2f}", flush=True)
+    for key, s, count in b["rows"][:14]:
+        print(f"   {s * 1e3 / n:8.4f} ms/{unit} {100 * s / b['busy_s']:5.1f}%"
+              f"  x{count / n:5.2f}/{unit}  {key[:90]}", flush=True)
 
 
 if __name__ == "__main__":

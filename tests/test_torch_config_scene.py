@@ -143,21 +143,27 @@ def test_convert_roundtrip():
 
 
 def test_port_imports_no_jax_and_cpu_path_launches_nothing():
-    """In a fresh interpreter the port leaves JAX out of sys.modules, and a
-    primed CPU run goes through the plain versions only (counters at 0)."""
+    """In a fresh interpreter the port (the renderer, the host loop and the
+    CLI included) leaves JAX out of sys.modules, and a primed CPU run and
+    render go through the plain versions only (counters at 0)."""
     code = (
         "import sys, torch\n"
         "import pi_sph_fluid_tpu_torch as T\n"
-        "from pi_sph_fluid_tpu_torch import convert\n"
+        "from pi_sph_fluid_tpu_torch import cli, convert\n"
+        "from pi_sph_fluid_tpu_torch.io import display, gravity, host_loop, native, web\n"
         "from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk\n"
-        "from pi_sph_fluid_tpu_torch.utils import profiling\n"
+        "from pi_sph_fluid_tpu_torch.render import metaballs, metaballs_window as mw\n"
+        "from pi_sph_fluid_tpu_torch.utils import profiling, stats\n"
         "cfg = T.SPHConfig()\n"
         "f, b = T.build_drop_scene(cfg, 'cpu')\n"
         "b, g = T.prepare_boundary(b, cfg)\n"
         "e = T.WindowEngine(cfg, b, g, f.n, 'cpu', tq=32, qb=8)\n"
-        "s = e.make_step()(e.prime(f, (0.0, -9.81)), (0.0, -9.81))\n"
+        "s, st, fr = e.make_multi_step(return_frame=True)(e.prime(f, (0.0, -9.81)),\n"
+        "                                                 [(0.0, -9.81)])\n"
+        "fb, ov = T.WindowRenderer(e).render_from_frame(s, fr)\n"
         "assert wk.density_window.launches == 0, wk.density_window.launches\n"
         "assert wk.forces_window.launches == 0, wk.forces_window.launches\n"
+        "assert mw.field_window.launches == 0, mw.field_window.launches\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('pi_sph_fluid_tpu.') or m == 'pi_sph_fluid_tpu']\n"
         "assert not bad, bad\n"

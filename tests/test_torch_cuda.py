@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk
+from pi_sph_fluid_tpu_torch.render import metaballs_window as mw
 from pi_sph_fluid_tpu_torch.utils.profiling import pool_engine
 
 G = (0.0, -9.81)
@@ -74,3 +75,34 @@ def test_forces_kernel_matches_plain(pool_frame, half_dt_frac, damp):
     assert torch.equal(pkk[:, [0, 1, 4, 5, 6, 7]], pkp[:, [0, 1, 4, 5, 6, 7]])
     if half_dt_frac == 0.0:
         assert torch.equal(pkk[:, 2:4], pk[:, 2:4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 256])
+def test_field_kernel_matches_plain(rows):
+    """The field kernel against its plain version on the 20k pool's frame
+    (random velocities, one exact tick), through the renderer's own inputs:
+    the scaled field within rtol 1e-5 / atol 5e-5 (test_render_window.py:60), lit
+    pixels identical wherever |field - 1| > 1e-3, one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    eng, fluid = pool_engine(20_000, "cuda")
+    rng = np.random.default_rng(3)
+    fluid = fluid._replace(**{
+        k: torch.from_numpy(rng.normal(0.0, 0.5, fluid.n).astype(np.float32)).cuda()
+        for k in ("u", "v")})
+    sim, st, frame = eng.make_multi_step(return_frame=True)(
+        eng.prime(fluid, G), np.float32([G]))
+    rend = mw.WindowRenderer(eng, rows, 128)
+    geo, ws, wl, ov = rend.frame_inputs(sim, frame)
+    assert int(ov) == 0
+    args = (rend.q_packed, geo, ws, wl, eng.cfg, rend.reuse_spec)
+    before = mw.field_window.launches
+    fk = mw.field_window(*args)
+    fp = mw.field_window_plain(*args)
+    torch.cuda.synchronize()
+    assert mw.field_window.launches == before + 1
+    fk, fp = fk * rend.field_scale, fp * rend.field_scale
+    torch.testing.assert_close(fk, fp, rtol=1e-5, atol=5e-5)
+    confident = (fp - 1.0).abs() > 1e-3
+    assert torch.equal((fk >= 1.0)[confident], (fp >= 1.0)[confident])

@@ -1,0 +1,239 @@
+"""The port's SimRunner on the CPU: the runner cases of tests/test_io.py
+(:488-720) and tests/test_stale_guard.py (:115-175), run against the
+window backend (the JAX package's "pallas") with device="cpu".  The port's
+plain kernel versions run here; the recovery, ladder and frame contracts
+are the JAX runner's."""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+import pi_sph_fluid_tpu_torch as T
+from pi_sph_fluid_tpu_torch.io.display import FileSink, PngSink
+from pi_sph_fluid_tpu_torch.io.gravity import ConstantGravity, RotatingGravity
+from pi_sph_fluid_tpu_torch.render import metaballs_window as tmw
+
+torch.set_num_threads(1)
+
+CFG = T.SPHConfig()
+KW = dict(tq=32, qb=8, cap=256, seg_q=2)
+# qb=16 windows overflow cap=128 on the drop and the dam with exact-start
+# windows (the JAX cases overflow at qb=8 through their dual-plane fetch)
+OV = dict(tq=32, qb=16, cap=128, seg_q=2)
+
+
+def _runner(scene="drop", fluid_fn=None, **kw):
+    fluid, braw = {"drop": T.build_drop_scene,
+                   "dam": T.build_dam_break_scene}[scene](CFG, "cpu")
+    if fluid_fn is not None:
+        fluid = fluid_fn(fluid)
+    kw.setdefault("engine_opts", dict(KW))
+    return T.SimRunner(CFG, fluid, braw, backend="window", device="cpu", **kw), fluid
+
+
+def _fast(speed):
+    """One particle at ``speed`` m/s in +x: a synthetic source of staleness
+    (test_stale_guard.py:44-50)."""
+    def fn(fluid):
+        u = fluid.u.clone()
+        u[0] = speed
+        return fluid._replace(u=u)
+    return fn
+
+
+def test_other_backends_not_ported():
+    fluid, braw = T.build_drop_scene(CFG, "cpu")
+    for backend, item in (("reference", "item 9"), ("window-dd", "item 10")):
+        with pytest.raises(NotImplementedError, match=item):
+            T.SimRunner(CFG, fluid, braw, backend=backend, device="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        T.SimRunner(CFG, fluid, braw, backend="pallas", device="cpu")
+
+
+def test_render_dispatch_writes_one_frame_per_dispatch(tmp_path):
+    """Sticky multi-step + frame-reuse render + overflow folding + the frame
+    pushed one dispatch late (test_io.py:488): 2 dispatches, 2 frames."""
+    runner, _ = _runner(resort_every=2)
+    path = tmp_path / "frames.bin"
+    sink = FileSink(str(path))
+    res = runner.run(ConstantGravity(CFG), sink, sim_seconds=8 * CFG.dt,
+                     steps_per_dispatch=4)
+    sink.close()
+    assert res.steps == 8 and res.dispatches == 2
+    assert res.reporter.total_overflow == 0
+    frames = np.fromfile(path, np.uint8)
+    assert frames.size == 2 * 1024
+    assert frames.any()
+    assert tmw.field_window.launches == 0      # the CPU runs the plain version
+
+
+def test_autocap_recovery_replays_clean():
+    """cap=128 overflows the dam: the runner grows the cap, reverts and
+    replays with the rotating source's logged traces; the result equals a
+    run started at the recovered cap, bitwise (test_io.py:515)."""
+    log = io.StringIO()
+    runner, _ = _runner("dam", engine_opts=dict(OV), render=False,
+                        max_cap=512)
+    res = runner.run(RotatingGravity(CFG, period_s=0.05), sim_seconds=8 * CFG.dt,
+                     steps_per_dispatch=4, report_stream=log)
+    assert res.recoveries >= 1
+    assert runner.engine.spec.cap > 128
+    assert res.reporter.total_overflow == 0
+    assert "WINDOW OVERFLOW" in log.getvalue()
+    clean, _ = _runner("dam", engine_opts=dict(OV, cap=runner.engine.spec.cap),
+                       render=False, auto_cap=False)
+    res2 = clean.run(RotatingGravity(CFG, period_s=0.05), sim_seconds=8 * CFG.dt,
+                     steps_per_dispatch=4)
+    a, b = runner.engine.unpad(res.sim), clean.engine.unpad(res2.sim)
+    assert torch.equal(a.x, b.x) and torch.equal(a.rho, b.rho)
+
+
+def test_autocap_ceiling_keeps_counting():
+    """At max_cap the runner stops recovering and the overflow stays
+    visible (test_io.py:556)."""
+    log = io.StringIO()
+    runner, _ = _runner("dam", engine_opts=dict(OV), render=False,
+                        max_cap=128)
+    res = runner.run(ConstantGravity(CFG), sim_seconds=8 * CFG.dt,
+                     steps_per_dispatch=4, report_stream=log)
+    assert res.recoveries == 0
+    assert res.reporter.total_overflow > 0
+    assert "max-cap reached" in log.getvalue()
+
+
+def test_autocap_settle_recovery():
+    """Overflow in the damped pre-roll restarts the settle under a grown cap
+    (test_io.py:576)."""
+    log = io.StringIO()
+    runner, _ = _runner("dam", engine_opts=dict(OV), render=False,
+                        max_cap=512)
+    res = runner.run(ConstantGravity(CFG), sim_seconds=4 * CFG.dt,
+                     steps_per_dispatch=4, settle_seconds=4 * CFG.dt,
+                     report_stream=log)
+    assert res.recoveries >= 1
+    assert "during settle" in log.getvalue()
+    assert res.reporter.total_overflow == 0
+
+
+def test_autocap_recovery_with_renderer(tmp_path):
+    """Frames pushed before a revert stay, the pending one is dropped, the
+    replay pushes corrected ones: the last frame equals a clean run's
+    (test_io.py:598)."""
+    runner, _ = _runner(engine_opts=dict(OV), max_cap=512)
+    p1, p2 = tmp_path / "recovered.bin", tmp_path / "clean.bin"
+    sink = FileSink(str(p1))
+    res = runner.run(ConstantGravity(CFG), sink, sim_seconds=8 * CFG.dt,
+                     steps_per_dispatch=4)
+    sink.close()
+    assert res.recoveries >= 1 and res.reporter.total_overflow == 0
+    clean, _ = _runner(engine_opts=dict(OV, cap=runner.engine.spec.cap),
+                       auto_cap=False)
+    sink2 = FileSink(str(p2))
+    clean.run(ConstantGravity(CFG), sink2, sim_seconds=8 * CFG.dt,
+              steps_per_dispatch=4)
+    sink2.close()
+    rec = np.fromfile(p1, np.uint8).reshape(-1, 1024)
+    ref = np.fromfile(p2, np.uint8).reshape(-1, 1024)
+    # one render per dispatch, replays included; each revert drops its one
+    # pending frame
+    assert res.dispatches > ref.shape[0] == 2
+    assert rec.shape[0] == res.dispatches - res.recoveries
+    assert (rec[-1] == ref[-1]).all()
+
+
+def test_autocap_recovery_with_resume():
+    """A revert whose checkpoint is a resumed state replays from it, never
+    re-primes (test_io.py:636)."""
+    warm, _ = _runner("dam", engine_opts=dict(OV, cap=256), render=False,
+                      auto_cap=False)
+    res0 = warm.run(ConstantGravity(CFG), sim_seconds=4 * CFG.dt,
+                    steps_per_dispatch=4)
+    runner, _ = _runner("dam", engine_opts=dict(OV), render=False,
+                        max_cap=512)
+    res = runner.run(ConstantGravity(CFG), sim_seconds=8 * CFG.dt,
+                     steps_per_dispatch=4, resume=res0.sim)
+    assert res.recoveries >= 1 and res.reporter.total_overflow == 0
+    clean, _ = _runner("dam", engine_opts=dict(OV, cap=runner.engine.spec.cap),
+                       render=False, auto_cap=False)
+    res2 = clean.run(ConstantGravity(CFG), sim_seconds=8 * CFG.dt,
+                     steps_per_dispatch=4, resume=res0.sim)
+    assert torch.equal(runner.engine.unpad(res.sim).x, clean.engine.unpad(res2.sim).x)
+
+
+def test_next_cap_ladder():
+    runner, _ = _runner(engine_opts=dict(OV), render=False, max_cap=1024)
+    assert [runner._next_cap(c) for c in (128, 256, 384, 512, 896)] == \
+        [256, 384, 640, 768, 1024]
+
+
+def test_render_shape_plumbs_to_renderer_and_sinks(tmp_path):
+    """A 32x64 raster end to end: 256-byte frames, a visible blob, PNG
+    geometry (test_io.py:690)."""
+    runner, _ = _runner(render_shape=(32, 64))
+    p = tmp_path / "frames.bin"
+    sink = FileSink(str(p))
+    runner.run(ConstantGravity(CFG), sink, sim_seconds=6 * CFG.dt,
+               steps_per_dispatch=3)
+    sink.close()
+    raw = p.read_bytes()
+    assert len(raw) > 0 and len(raw) % 256 == 0
+    img = T.unpack_framebuffer(np.frombuffer(raw[-256:], np.uint8), 32, 64)
+    assert img.any() and not img.all()
+    png = PngSink(str(tmp_path / "f"), 32, 64, scale=2)
+    png.push(np.frombuffer(raw[-256:], np.uint8))
+    data = (tmp_path / "f_000000.png").read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    assert data[16:24] == (128).to_bytes(4, "big") + (64).to_bytes(4, "big")
+
+
+def test_runner_raises_resort_when_clean():
+    """A quiet flow climbs the upward ladder 2 -> 4 -> 8, capped at
+    max_resort, with stale 0 (test_stale_guard.py:115)."""
+    stream = io.StringIO()
+    runner, _ = _runner(render=False, resort_every=2, max_resort=8, raise_after=1)
+    result = runner.run(ConstantGravity(CFG), sim_seconds=0.032,
+                        steps_per_dispatch=16, report_stream=stream,
+                        report_every=0.004)
+    assert "RESORT LADDER" in stream.getvalue()
+    assert runner._resort == 8
+    assert result.reporter.total_stale == 0
+    assert result.recoveries == 0
+
+
+def test_ladder_ceiling_pinned_below_tripped_period():
+    """60 m/s trips 8 and 4; 2 is quiet, and the ceiling stays at 2
+    (test_stale_guard.py:137)."""
+    stream = io.StringIO()
+    runner, _ = _runner(fluid_fn=_fast(60.0), render=False, resort_every=8,
+                        max_resort=16, raise_after=1)
+    result = runner.run(ConstantGravity(CFG), sim_seconds=0.04,
+                        steps_per_dispatch=16, report_stream=stream,
+                        report_every=0.004)
+    assert "STALE DRIFT" in stream.getvalue()
+    assert runner._resort == 2 and runner._resort_ceiling == 2
+    assert result.reporter.total_stale == 0
+
+
+def test_runner_downgrades_resort_on_stale():
+    """The downgrade ladder lands on the largest period the flow allows
+    (test_stale_guard.py:159)."""
+    stream = io.StringIO()
+    runner, _ = _runner(fluid_fn=_fast(60.0), render=False, resort_every=8)
+    result = runner.run(ConstantGravity(CFG), sim_seconds=0.02,
+                        report_stream=stream, report_every=0.005)
+    assert "STALE DRIFT" in stream.getvalue()
+    assert runner._resort == 2
+    assert result.recoveries >= 2
+    assert result.reporter.total_stale == 0
+
+
+def test_realtime_pacing_keeps_sim_time():
+    """--realtime paces each dispatch to its sim-time deadline: a run of
+    sim time s takes at least s of wall time."""
+    runner, _ = _runner(render=False)
+    res = runner.run(ConstantGravity(CFG), sim_seconds=16 * CFG.dt,
+                     steps_per_dispatch=8, realtime=True)
+    assert res.steps == 16
+    assert res.wall_s >= 16 * CFG.dt
