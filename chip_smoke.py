@@ -6,8 +6,10 @@
 Phases, each printing its own line with its seconds:
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
-2. build: nvcc compiles the window kernels (density, forces, field) from
-   the checkout's sources, with ptxas's registers and spills for each;
+2. build: nvcc compiles the window kernels (density, forces, field) and
+   the probe kernels (window copy, span density) from the checkout's
+   sources, one nvcc per source, all started together, with ptxas's
+   registers and spills for each;
 3. kernels against their plain PyTorch versions on one relayout of the
    100k pool (the field kernel through the renderer's frame inputs at
    64x128), with times for both, each kernel's window lanes
@@ -33,7 +35,21 @@ Phases, each printing its own line with its seconds:
 10. runner_recovery: ``cli run`` on the 100k pool at the CLI defaults,
    where the startup jets overflow the cap: at least one recovery, one
    field launch per dispatch run (replays included), one frame written per
-   dispatch less the one each revert drops, overflow and stale 0 at the end.
+   dispatch less the one each revert drops, overflow and stale 0 at the end;
+11. probes: the two probe scripts as a user runs them (``python -m
+   pi_sph_fluid_tpu_torch.tools.unaligned_probe`` / ``.span_dma_probe``,
+   their ``main()`` with the launch counters set to 0 just before and read
+   just after), then each probe kernel against its plain version at every
+   shape and form the scripts run (the copy bitwise, the span within rtol
+   1e-5 of max |out|), with CUDA-event ms, the plain version's ms, the
+   profiler's device time, bytes, FLOPs and the bound, the copy's library
+   call (``src[:, idx]``) and the aligned/unaligned, B/A and C/A ratios;
+12. bench: ``python -m pi_sph_fluid_tpu_torch.bench`` in a subprocess at its
+   defaults; its JSON line must show overflow, stale and render overflow 0;
+13. oracle: the reference backend on the card: the 269 drop through step
+   500 against the C golden at test_parity.py's gates, with no window
+   kernel launched, then ``cli run --backend reference`` with a file
+   display, frames written.
 
 Then one JSON line that holds every kernel's results, the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -50,6 +66,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -63,8 +80,13 @@ from pi_sph_fluid_tpu_torch import cli  # noqa: E402
 from pi_sph_fluid_tpu_torch.models import engine_v3  # noqa: E402
 from pi_sph_fluid_tpu_torch.ops.window import _build  # noqa: E402
 from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk  # noqa: E402
+from pi_sph_fluid_tpu_torch.models import simulation  # noqa: E402
 from pi_sph_fluid_tpu_torch.render import metaballs_window as mw  # noqa: E402
-from pi_sph_fluid_tpu_torch.utils.profiling import pool_engine  # noqa: E402
+from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp  # noqa: E402
+from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up  # noqa: E402
+from pi_sph_fluid_tpu_torch.utils.profiling import (bound, covered,  # noqa: E402
+                                                    device_breakdown, event_ms,
+                                                    pool_engine)
 
 G = (0.0, -9.81)
 DEV = torch.device("cuda")
@@ -76,18 +98,22 @@ N_FRAMES = 20           # render_from_frame timings, after one warm-up
 SHAPES = ((64, 128), (256, 128))
 RUN_DISPATCHES = 30     # cli run: dispatches of one 60 Hz frame each
 RECOVERY_DISPATCHES = 24  # cli run at the defaults: 0.4 s, past the startup jets
-# wrapper (with its launch counter) and the TPU kernel it replaces
+BENCH_TIMEOUT = 600     # seconds for the bench subprocess
+ORACLE_GATES = {100: (5e-6, 5e-5), 200: (1e-5, 1e-4), 500: (1e-4, 5e-3)}
+# wrapper (with its launch counter), the TPU kernel it replaces and its source
+WINDOW_SRC = "pi_sph_fluid_tpu_torch/csrc/window_kernels.cu"
+PROBE_SRC = "pi_sph_fluid_tpu_torch/csrc/probe_kernels.cu"
 KERNELS = {
     "density_window": (wk.density_window,
-                       "pi_sph_fluid_tpu/ops/pallas/window_kernels.py:192"),
+                       "pi_sph_fluid_tpu/ops/pallas/window_kernels.py:192", WINDOW_SRC),
     "forces_window": (wk.forces_window,
-                      "pi_sph_fluid_tpu/ops/pallas/window_kernels.py:317"),
+                      "pi_sph_fluid_tpu/ops/pallas/window_kernels.py:317", WINDOW_SRC),
     "field_window": (mw.field_window,
-                     "pi_sph_fluid_tpu/render/metaballs_window.py:164"),
+                     "pi_sph_fluid_tpu/render/metaballs_window.py:164", WINDOW_SRC),
+    "window_copy": (up.window_copy, "tools/unaligned_probe.py:34", PROBE_SRC),
+    "span_density": (sp.span_density, "tools/span_dma_probe.py:38", PROBE_SRC),
 }
-# the card's peaks (NVIDIA H100 SXM data sheet, at a 700 W limit): device
-# memory bytes/s and float32 operations/s outside the tensor cores
-PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+SIM_KERNELS = ("density_window", "forces_window", "field_window")
 # float32 operations per pair lane (sqrt, max and select counted as one)
 # and device-memory bytes per query row (inputs read, outputs written once)
 # and per window lane; a pixel needs only its x and y of the query row
@@ -105,22 +131,8 @@ def _sync() -> None:
     torch.cuda.synchronize(DEV)
 
 
-def _ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` calls after one warm-up,
-    by CUDA events."""
-    fn()
-    _sync()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _reset_counts() -> None:
-    for wrapper, _ in KERNELS.values():
+    for wrapper, *_ in KERNELS.values():
         wrapper.launches = 0
 
 
@@ -132,30 +144,39 @@ def _gravity(n: int) -> np.ndarray:
     return np.tile(np.float32(G), (n, 1))
 
 
-def _lanes(w_start, w_len, cap: int, L: int) -> tuple[int, int]:
-    """(sum of the lanes the kernels compute, min(w_len, cap) clamped to the
-    candidate array as the kernels clamp it; the distinct candidate rows
-    those windows touch)."""
-    s = w_start.reshape(-1).long().clamp(0, L)
-    n = torch.minimum(w_len.reshape(-1).long().clamp(0, cap), L - s).clamp_min(0)
-    delta = torch.zeros(L + 1, dtype=torch.int64, device=s.device)
-    delta.index_add_(0, s, torch.ones_like(s))
-    delta.index_add_(0, s + n, -torch.ones_like(s))
-    return int(n.sum()), int((torch.cumsum(delta, 0)[:L] > 0).sum())
-
-
 def _bound(name: str, n_rows: int, qb: int, w_start, w_len, cap: int, L: int) -> dict:
     """The kernel's bound on this card for these inputs: the larger of its
     bytes (query rows, window arrays, each distinct candidate row once) over
-    the memory rate and its pair-lane operations over the float32 rate."""
+    the memory rate and its pair-lane operations over the float32 rate.
+    Lanes are sum min(w_len, cap), clamped to the candidate array as the
+    kernels clamp them."""
     c = COST[name]
-    lanes, rows = _lanes(w_start, w_len, cap, L)
+    s = w_start.reshape(-1).long().clamp(0, L)
+    n = torch.minimum(w_len.reshape(-1).long().clamp(0, cap), L - s).clamp_min(0)
+    lanes, rows = int(n.sum()), covered(s, n, L)
     nbytes = n_rows * c["row_bytes"] + w_start.numel() * 8 + rows * c["lane_bytes"]
-    flops = qb * lanes * c["flops"]
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS
-    return dict(window_lanes=lanes, candidate_rows=rows, bytes=nbytes, flops=flops,
-                bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return dict(window_lanes=lanes, candidate_rows=rows,
+                **bound(nbytes, qb * lanes * c["flops"]))
+
+
+def _device_ms(fn, name: str, n: int = 20) -> float:
+    """The profiler's device time per launch of the CUDA kernel
+    ``<name>_kernel``, averaged over the launches it recorded of ``n``
+    calls of ``fn``.  It records some, not all: on an H100 it missed the
+    first launches of a fast loop, and late in this script it kept 8 of 20,
+    so the calls wait 50 ms first and at least one must be recorded."""
+
+    def calls():
+        time.sleep(0.05)
+        for _ in range(n):
+            fn()
+
+    fn()
+    b = device_breakdown(calls, DEV)
+    rows = [(sec, cnt) for key, sec, cnt in b["rows"] if f"{name}_kernel" in key]
+    count = sum(c for _, c in rows)
+    assert 1 <= count <= n, (name, count, b["rows"][:5])
+    return sum(sec for sec, _ in rows) * 1e3 / count
 
 
 def _check_state(sim, stats, what: str) -> None:
@@ -240,23 +261,27 @@ def compare_kernels(eng, fluid, results: dict) -> None:
 
     results["density_window"].update(
         max_abs_err=float((rho_k - rho_p).abs().max()),
-        ms=_ms(lambda: wk.density_window(*d_args), 50),
-        plain_ms=_ms(lambda: wk.density_window_plain(*d_args), 5),
+        ms=event_ms(lambda: wk.density_window(*d_args), 50),
+        plain_ms=event_ms(lambda: wk.density_window_plain(*d_args), 5),
         **_bound("density_window", spec.n_layout, spec.qb, ctx.w_start,
                  ctx.flen, spec.cap, geo_d.shape[0]))
     results["forces_window"].update(
         max_abs_err=float(dacc.max()),
-        ms=_ms(lambda: wk.forces_window(*f_args), 50),
-        plain_ms=_ms(lambda: wk.forces_window_plain(*f_args), 5),
+        ms=event_ms(lambda: wk.forces_window(*f_args), 50),
+        plain_ms=event_ms(lambda: wk.forces_window_plain(*f_args), 5),
         **_bound("forces_window", spec.n_layout, spec.qb, ctx.w_start,
                  ctx.flen, spec.cap, geo_f.shape[0]))
     rspec = rend.reuse_spec
     results["field_window"].update(
         max_abs_err=float(dfield.max()),
-        ms=_ms(lambda: mw.field_window(*r_args), 50),
-        plain_ms=_ms(lambda: mw.field_window_plain(*r_args), 5),
+        ms=event_ms(lambda: mw.field_window(*r_args), 50),
+        plain_ms=event_ms(lambda: mw.field_window_plain(*r_args), 5),
         **_bound("field_window", rspec.n_layout, rspec.qb, ws_r, wl_r,
                  rspec.cap, geo_r.shape[0]))
+    for name, fn in (("density_window", lambda: wk.density_window(*d_args)),
+                     ("forces_window", lambda: wk.forces_window(*f_args)),
+                     ("field_window", lambda: mw.field_window(*r_args))):
+        results[name]["device_ms"] = _device_ms(fn, name)
     print(f"  density: max rel d_rho {rel_rho:.3e}, max |d_p| {float(dp.max()):.3e} Pa; "
           f"kernel {results['density_window']['ms']:.4f} ms, "
           f"plain {results['density_window']['plain_ms']:.4f} ms", flush=True)
@@ -267,7 +292,7 @@ def compare_kernels(eng, fluid, results: dict) -> None:
     print(f"  field (64x128, cap {rspec.cap}): max |d_field| {float(dfield.max()):.3e}; "
           f"kernel {results['field_window']['ms']:.4f} ms, "
           f"plain {results['field_window']['plain_ms']:.4f} ms", flush=True)
-    for name in KERNELS:
+    for name in SIM_KERNELS:
         r = results[name]
         print(f"  {name}: sum min(w_len, cap) {r['window_lanes']} lanes, "
               f"{r['candidate_rows']} distinct candidate rows, {r['bytes']} B, "
@@ -349,13 +374,17 @@ def run_golden() -> dict:
 def run() -> dict:
     """Phases 2-10 on the card; returns the per-kernel results."""
     t0 = time.perf_counter()
-    _, log = _build.library()
-    ptxas = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-             if "entry function" in ln or "registers" in ln or "spill" in ln]
-    _phase("build", t0, source=str(_build.SOURCE.relative_to(HERE)),
-           ptxas=json.dumps(ptxas))
-    results = {name: {"name": name, "route": "cuda",
-                      "source": "pi_sph_fluid_tpu_torch/csrc/window_kernels.cu",
+    # every kernel source at once, one nvcc each; loading both libraries
+    # here, before any profiler session, also lets the profiler see them
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        logs = dict(zip(_build.SOURCES, pool.map(lambda n: _build.library(n)[1],
+                                                 _build.SOURCES)))
+    for name, log in logs.items():
+        ptxas = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                 if "entry function" in ln or "registers" in ln or "spill" in ln]
+        _phase("build", t0, source=str(_build.SOURCES[name][0].relative_to(HERE)),
+               ptxas=json.dumps(ptxas))
+    results = {name: {"name": name, "route": "cuda", "source": k[2],
                       "replaces": k[1]} for name, k in KERNELS.items()}
 
     t0 = time.perf_counter()
@@ -395,13 +424,24 @@ def run() -> dict:
 
     t0 = time.perf_counter()
     info = run_runner()
-    for name in KERNELS:
+    for name in SIM_KERNELS:
         results[name]["launches"] = info["launches"][name]
         results[name]["library_ms"] = None
     _phase("runner", t0, **info)
 
     t0 = time.perf_counter()
     _phase("runner_recovery", t0, **run_recovery())
+
+    t0 = time.perf_counter()
+    _phase("probes", t0, **run_probes(results))
+
+    t0 = time.perf_counter()
+    _phase("bench", t0, **run_bench())
+
+    t0 = time.perf_counter()
+    _phase("oracle", t0, **run_oracle())
+    for r in results.values():
+        r["share"] = r["bound_ms"] / r["device_ms"] if r.get("device_ms") else None
     return results
 
 
@@ -419,7 +459,7 @@ def run_render(frames: dict) -> dict:
             assert int(ov) == 0, f"{size} {rows}x{cols}: render overflow {int(ov)}"
             img = T.unpack_framebuffer(fb.cpu().numpy(), rows, cols)
             assert not img[:8].any() and img[-8:].any(), f"{size} {rows}x{cols}: frame"
-            out[f"{size}_{rows}x{cols}_ms"] = _ms(
+            out[f"{size}_{rows}x{cols}_ms"] = event_ms(
                 lambda: rend.render_from_frame(sim, frame), N_FRAMES)
             out[f"{size}_{rows}x{cols}_cap"] = rend.reuse_spec.cap
     return out
@@ -476,7 +516,7 @@ def _cli_run(n_dispatch: int, dt_factor: float, *opts: str):
     assert res.steps == n_dispatch * k, (res.steps, n_dispatch, k)
     assert res.reporter.total_overflow == 0, res.reporter.total_overflow
     assert res.reporter.total_stale == 0, res.reporter.total_stale
-    assert all(c > 0 for c in counts.values()), counts
+    assert all(counts[k] > 0 for k in SIM_KERNELS), counts
     # one render per dispatch run, replays included; a revert drops the one
     # frame it had pending
     assert counts["field_window"] == res.dispatches, (counts, res.dispatches)
@@ -526,6 +566,144 @@ def run_recovery() -> dict:
     return dict(k=k, dispatches=RECOVERY_DISPATCHES, run=res.dispatches,
                 recoveries=res.recoveries, frames=len(imgs), launches=counts,
                 wall_s=res.wall_s, worst_speed=res.reporter.worst_speed)
+
+
+def _case(fn, plain, name: str, cost: dict, err: float) -> dict:
+    """One probe-kernel case: CUDA-event ms of the kernel (20 launches) and
+    of its plain version (3), the profiler's device ms, and the bound."""
+    out = dict(max_abs_err=err, ms=event_ms(fn, 20), plain_ms=event_ms(plain, 3),
+               device_ms=_device_ms(fn, name), **cost)
+    out["share"] = out["bound_ms"] / out["device_ms"]
+    return out
+
+
+def run_probes(results: dict) -> dict:
+    """The probe scripts as a user runs them, with the counters at 0 just
+    before and read just after; then each kernel against its plain version
+    at every shape and form the scripts run.  Copy: bitwise.  Span: within
+    rtol 1e-5 of max |out| (the sums run in another order, and nvcc
+    contracts a*b + c into FMAs)."""
+    _reset_counts()
+    copy_main, span_main = up.main([]), sp.main([])
+    counts = _counts()
+    assert counts["window_copy"] > 0 and counts["span_density"] > 0, counts
+    assert all(counts[k] == 0 for k in SIM_KERNELS), counts
+    cases = {}
+    for L, n_tiles in up.SHAPES:
+        src_np, al, un = up.make_starts(L, n_tiles)
+        src = torch.from_numpy(src_np).to(DEV)
+        for form, st in (("aligned", al), ("unaligned", un)):
+            starts = torch.from_numpy(st).to(DEV)
+            aligned = form == "aligned"
+            got = up.window_copy(starts, src, aligned=aligned)
+            assert torch.equal(got, up.window_copy_plain(starts, src)), (L, form)
+            case = _case(lambda: up.window_copy(starts, src, aligned=aligned),
+                         lambda: up.window_copy_plain(starts, src), "window_copy",
+                         up.copy_cost(starts, src), 0.0)
+            idx = (starts.long()[..., None]
+                   + torch.arange(up.CAP, device=DEV)).contiguous()
+            case["library_ms"] = event_ms(lambda: src[:, idx], 20)
+            cases[f"copy_L{L}_{form}"] = case
+        del src, got
+    for n_layout, L in sp.SHAPES:
+        for v, (spans, cap) in sp.VARIANTS.items():
+            q, src, w_s = sp.make_inputs(n_layout, L, spans, cap, DEV)
+            got = sp.span_density(q, src, w_s, spans, cap)
+            want = sp.span_density_plain(q, src, w_s, spans, cap)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            assert scale > 0 and err <= 1e-5 * scale, (n_layout, v, err, scale)
+            case = _case(lambda: sp.span_density(q, src, w_s, spans, cap),
+                         lambda: sp.span_density_plain(q, src, w_s, spans, cap),
+                         "span_density", sp.span_cost(q, src, w_s, spans, cap), err)
+            case["library_ms"] = None
+            cases[f"span_n{n_layout}_{v}"] = case
+        del q, src, w_s, got, want
+    # the kernels line carries each probe at its JAX probe's own shape (the
+    # copy in the port's exact-start form, the span in the shipped 1x512
+    # form), and every case beside it
+    for name, prefix, key in (
+            ("window_copy", "copy_", f"copy_L{up.SHAPES[0][0]}_unaligned"),
+            ("span_density", "span_", f"span_n{sp.SHAPES[0][0]}_A")):
+        results[name].update(launches=counts[name], case=key, **cases[key])
+        results[name]["cases"] = {k: v for k, v in cases.items() if k.startswith(prefix)}
+    for key, c in cases.items():
+        print(f"  {key}: kernel {c['ms']:.4f} ms, device {c['device_ms']:.4f} ms, "
+              f"plain {c['plain_ms']:.4f} ms, library {c['library_ms']} ms; "
+              f"{c['bytes']} B, {c['flops']} FLOP, bound {c['bound_ms']:.6f} ms by "
+              f"{c['bound_by']}, share {c['share']:.3f}; max |err| {c['max_abs_err']:.3e}",
+              flush=True)
+    ratios = {}
+    for L, n_tiles in up.SHAPES:
+        a, u = cases[f"copy_L{L}_aligned"], cases[f"copy_L{L}_unaligned"]
+        ratios[f"copy_L{L}_unaligned_over_aligned_device"] = u["device_ms"] / a["device_ms"]
+    for n_layout, _ in sp.SHAPES:
+        a = cases[f"span_n{n_layout}_A"]["device_ms"]
+        for v in ("B", "C"):
+            ratios[f"span_n{n_layout}_{v}_over_A_device"] = \
+                cases[f"span_n{n_layout}_{v}"]["device_ms"] / a
+    return dict(launches=counts, copy_main=json.dumps(copy_main),
+                span_main=json.dumps(span_main), ratios=json.dumps(ratios))
+
+
+def run_bench() -> dict:
+    """``python -m pi_sph_fluid_tpu_torch.bench`` at its defaults in a
+    subprocess, its JSON line gated and printed."""
+    proc = subprocess.run([sys.executable, "-m", "pi_sph_fluid_tpu_torch.bench"],
+                          cwd=str(HERE), capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    for k in ("neighbor_overflow", "stale_drift", "render_overflow"):
+        assert line[k] == 0, (k, line)
+    assert line["m1"]["neighbor_overflow"] == 0 and line["m1"]["stale_drift"] == 0, line
+    assert line["device"] == torch.cuda.get_device_name(0), line
+    assert line["not_ported"] == ["dd", "dd_strong"], line
+    print(json.dumps(line), flush=True)
+    return dict(value=line["value"], exact_ps_per_s=line["exact_ps_per_s"],
+                m1_ms_per_step=line["m1"]["ms_per_step"])
+
+
+def run_oracle() -> dict:
+    """The jnp-oracle backend on the card: the 269 drop through step 500
+    against the C golden at test_parity.py's gates, launching no window
+    kernel; then ``cli run --backend reference`` with a file display."""
+    golden = np.load(HERE / "tests" / "fixtures" / "golden_drop.npz")
+    cfg = T.SPHConfig()
+    fluid, braw = T.build_drop_scene(cfg, DEV)
+    b, bg = T.prepare_boundary(braw, cfg)
+    _reset_counts()
+    _sync()
+    t0 = time.perf_counter()
+    sim = simulation.prime(fluid, b, bg, G, cfg)
+    multi = simulation.make_multi_step(cfg, b, bg)
+    worst, step = {}, 0
+    for stop, (pos_tol, vel_tol) in ORACLE_GATES.items():
+        sim, st = multi(sim, _gravity(stop - step))
+        step = stop
+        assert int(st.neighbor_overflow.max()) == 0, f"oracle step {stop}: overflow"
+        gs = golden["states"][stop // 10]
+        inv = torch.argsort(sim.ids.long())
+        err = {f: float(np.abs(getattr(sim.fluid, f)[inv].cpu().numpy() - gs[:, i]).max())
+               for i, f in enumerate("xyuv")}
+        assert max(err["x"], err["y"]) <= pos_tol, f"oracle step {stop}: {err}"
+        assert max(err["u"], err["v"]) <= vel_tol, f"oracle step {stop}: {err}"
+        worst[stop] = err
+    _sync()
+    ticks_per_s = step / (time.perf_counter() - t0)
+    assert all(c == 0 for c in _counts().values()), _counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "frames.bin"
+        res = cli.main(["run", "--backend", "reference", "--device", "cuda",
+                        "--scene", "drop", "--seconds", "0.1", "--display",
+                        f"file:{path}"])
+        frames = np.fromfile(path, np.uint8).reshape(-1, 1024)
+    assert res.reporter.total_overflow == 0 and res.recoveries == 0
+    assert 1 <= frames.shape[0] <= res.dispatches, (frames.shape, res.dispatches)
+    assert all(T.unpack_framebuffer(fb).any() for fb in frames), "an unlit frame"
+    return dict(worst=json.dumps(worst), ticks_per_s=ticks_per_s,
+                cli_dispatches=res.dispatches, cli_frames=frames.shape[0],
+                cli_ps_per_s=res.particle_steps_per_s)
 
 
 def main() -> int:

@@ -7,8 +7,10 @@ models.engine_v3.WindowEngine, with its density and forces window kernels
 (ops/window, csrc/window_kernels.cu); the metaball window renderer with its
 field kernel (render/); and the live-simulation path around them, the
 SimRunner host loop, its gravity sources and display sinks (io/) and the
-``run``/``bench`` CLI (cli.py).  This package imports torch and numpy and
-never JAX.
+``run``/``bench`` CLI (cli.py); the jnp-oracle stepper (models/simulation.py,
+``backend="reference"``); the headline bench (bench.py); and the two TPU
+probes redone for the card (tools/).  This package imports torch and numpy
+and never JAX.
 """
 
 from .config import DEFAULT_CONFIG, SPHConfig
@@ -17,7 +19,7 @@ from .models.engine_v3 import PackedSim, WindowEngine
 from .io.host_loop import RunResult, SimRunner
 from .models.scene import (build_dam_break_scene, build_drop_scene,
                            build_pool_scene, pixel_centers)
-from .models.simulation import StepStats
+from .models.simulation import SimState, StepStats, make_multi_step, make_step, prime
 from .render.metaballs import make_renderer, pack_framebuffer, unpack_framebuffer
 from .render.metaballs_window import WindowRenderer
 from .state import BoundaryState, FluidState, load_state, save_state
@@ -34,6 +36,10 @@ __all__ = [
     "build_pool_scene",
     "prepare_boundary",
     "StepStats",
+    "SimState",
+    "prime",
+    "make_step",
+    "make_multi_step",
     "WindowEngine",
     "PackedSim",
     "pixel_centers",

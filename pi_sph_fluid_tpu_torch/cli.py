@@ -3,13 +3,15 @@
 ``run`` is the interactive simulator (the reference's `desktop_sph_fluid` /
 `pi_sph_fluid` targets, `Makefile:18-27`, with --realtime and the sensor
 and display chosen at run time); ``bench`` free-runs without pacing.  Both
-drive the window backend (the JAX CLI's default "pallas"; its "reference"
-and "pallas-dd" backends are not ported yet) on ``--device`` (default
-``cuda``; there is no fallback to the CPU when no GPU is found).
+take ``--backend window`` (the default, the JAX CLI's "pallas": the window
+kernels) or ``--backend reference`` (the jnp oracle; the JAX CLI's
+"pallas-dd" is not ported yet) on ``--device`` (default ``cuda``; there is
+no fallback to the CPU when no GPU is found).
 
     python -m pi_sph_fluid_tpu_torch.cli run --scene drop --seconds 3 --display terminal
     python -m pi_sph_fluid_tpu_torch.cli run --device cpu --scene drop --display file:/tmp/f.bin
     python -m pi_sph_fluid_tpu_torch.cli bench --n 1000000 --steps 64 --render
+    python -m pi_sph_fluid_tpu_torch.cli run --backend reference --scene drop --display file:/tmp/f.bin
 """
 
 from __future__ import annotations
@@ -113,7 +115,8 @@ def cmd_run(args):
     print(f"n_fluid = {fluid.n}")
     print(f"n_boundary = {braw.n}")
     render_shape = _parse_render_shape(args.render_shape)
-    runner = SimRunner(cfg, fluid, braw, engine_opts=dict(cap=args.cap),
+    runner = SimRunner(cfg, fluid, braw, backend=args.backend,
+                       engine_opts=dict(cap=args.cap),
                        render=args.display != "none",
                        render_shape=render_shape,
                        resort_every=args.resort_every,
@@ -128,7 +131,7 @@ def cmd_run(args):
     # the PackedSim is rebuilt verbatim while n_layout still matches; a
     # re-prime from the id-ordered fluid view is only ulp-close
     resume = None
-    if loaded is not None and "packed" in loaded:
+    if loaded is not None and runner.engine is not None and "packed" in loaded:
         pk = loaded["packed"]
         if pk.shape[0] == runner.engine.n_layout:
             from .models.engine_v3 import PackedSim
@@ -151,10 +154,14 @@ def cmd_run(args):
         from .state import save_state
 
         sim = result.sim
-        # the portable id-ordered view plus the raw layout arrays (the
-        # leapfrog carry included) for a bitwise resume
-        save_state(args.save_state, fluid=runner.engine.unpad(sim),
-                   packed=sim.packed, ids=sim.ids, au=sim.au, av=sim.av)
+        if runner.engine is not None:
+            # the portable id-ordered view plus the raw layout arrays (the
+            # leapfrog carry included) for a bitwise resume
+            save_state(args.save_state, fluid=runner.engine.unpad(sim),
+                       packed=sim.packed, ids=sim.ids, au=sim.au, av=sim.av)
+        else:
+            save_state(args.save_state, fluid=sim.fluid, ids=sim.ids,
+                       au=sim.au, av=sim.av)
         print(f"state saved to {args.save_state}", file=sys.stderr)
     extra = (f", {result.recoveries} capacity recover"
              f"{'y' if result.recoveries == 1 else 'ies'}"
@@ -175,7 +182,8 @@ def cmd_bench(args):
     fluid, braw = build_pool_scene(cfg, args.device)
     # auto_cap off: a bench measures the configured cap; overflow shows in
     # the JSON instead
-    runner = SimRunner(cfg, fluid, braw, engine_opts=dict(cap=args.cap),
+    runner = SimRunner(cfg, fluid, braw, backend=args.backend,
+                       engine_opts=dict(cap=args.cap),
                        render=args.render,
                        resort_every=args.resort_every, auto_cap=False,
                        device=args.device)
@@ -193,7 +201,7 @@ def cmd_bench(args):
         "n_fluid": result.n_fluid,
         "steps": result.steps,
         "wall_s": result.wall_s,
-        "backend": "window",
+        "backend": args.backend,
         "device": str(runner.device),
         "render": args.render,
         "resort_every": args.resort_every,
@@ -205,9 +213,13 @@ def cmd_bench(args):
     return out
 
 
-def _add_device(p):
+def _add_target(p):
     p.add_argument("--device", default="cuda",
                    help="torch device the run lives on (cuda, cuda:N, cpu)")
+    p.add_argument("--backend", default="window", choices=["window", "reference"],
+                   help="window: the window kernels (production); reference: "
+                        "the jnp oracle (dense candidates, exact every tick, "
+                        "no cap recovery)")
 
 
 def main(argv=None):
@@ -215,7 +227,7 @@ def main(argv=None):
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     rp = sub.add_parser("run", help="interactive simulation")
-    _add_device(rp)
+    _add_target(rp)
     rp.add_argument("--scene", default="drop", choices=["drop", "dam", "pool"])
     rp.add_argument("--r", type=float, default=0.075, help="particle spacing (m)")
     rp.add_argument("--dt-factor", type=float, default=1.0,
@@ -271,7 +283,7 @@ def main(argv=None):
     rp.set_defaults(fn=cmd_run)
 
     bp = sub.add_parser("bench", help="headless throughput benchmark")
-    _add_device(bp)
+    _add_target(bp)
     bp.add_argument("--n", type=int, default=1_000_000, help="target particle count")
     bp.add_argument("--steps", type=int, default=200)
     bp.add_argument("--render", action="store_true", help="include rendering in the loop")

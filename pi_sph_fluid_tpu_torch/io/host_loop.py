@@ -1,5 +1,6 @@
 """The host run loop: K device steps per dispatch, I/O at the edges (port of
-`pi_sph_fluid_tpu/io/host_loop.py:31-670`, the window backend).
+`pi_sph_fluid_tpu/io/host_loop.py:31-670`, the window and reference
+backends).
 
 This replaces the reference's `main` loop (`pi_sph_fluid.c:610-703`): the
 device advances K ticks per dispatch, gravity is sampled per batch (a (K, 2)
@@ -26,6 +27,8 @@ import torch
 from ..config import SPHConfig
 from ..models.boundary import prepare_boundary
 from ..models.engine_v3 import WindowEngine
+from ..models.simulation import make_multi_step, prime
+from ..render.metaballs import make_renderer
 from ..render.metaballs_window import WindowRenderer
 from ..utils.stats import StatsReporter
 
@@ -72,8 +75,10 @@ class SimRunner:
     """Owns the engine and renderer for one scene on one device.
 
     backend: "window" (the window kernels on one device; the JAX package's
-    "pallas").  The jnp-oracle backend ("reference") and slab domain
-    decomposition ("window-dd") are not ported yet.
+    "pallas") or "reference" (the jnp oracle, models/simulation.py: dense
+    candidate windows, the oracle renderer, no resort ladder and no cap
+    recovery, as in the JAX runner).  Slab domain decomposition
+    ("window-dd") is not ported yet.
     """
 
     def __init__(
@@ -92,36 +97,39 @@ class SimRunner:
         raise_after: int = 2,
         device="cuda",
     ):
-        if backend == "reference":
-            raise NotImplementedError(
-                "backend 'reference' (the jnp oracle) is not ported yet: "
-                "ROADMAP Queue 1 item 9")
         if backend in ("window-dd", "pallas-dd"):
             raise NotImplementedError(
                 "slab domain decomposition is not ported yet: ROADMAP Queue 1 "
                 "item 10")
-        if backend != "window":
+        if backend not in ("window", "reference"):
             raise ValueError(f"unknown backend {backend!r}")
         if resort_every < 1:
             raise ValueError(f"resort_every must be >= 1, got {resort_every}")
+        window = backend == "window"
         self.cfg = cfg
+        self.backend = backend
         self.device = torch.device(device)
         self.n_fluid = fluid.n
         self.boundary, self._bgrid = prepare_boundary(boundary_raw, cfg)
         self._fluid_init = fluid
         self._render = render
         self._render_shape = render_shape
-        self._resort = resort_every
-        self.auto_cap = auto_cap
+        # the oracle relayouts every tick: no sticky period, no ladder, no
+        # window cap to recover (`host_loop.py:98,109-110,140`)
+        self._resort = resort_every if window else 1
+        self.auto_cap = auto_cap and window
         self.max_cap = max_cap
         # upward resort ladder: after raise_after consecutive clean report
         # intervals the period doubles up to max_resort; a stale trip halves
         # it and pins the ceiling below the tripped period.  Off when None.
-        self._max_resort = max_resort
+        self._max_resort = max_resort if window else None
         self._raise_after = max(1, int(raise_after))
         self._resort_ceiling = max_resort or 0
         self._engine_opts = dict(engine_opts or {})
-        self._build()
+        if window:
+            self._build()
+        else:
+            self._build_reference()
 
     # ------------------------------------------------------------------
     def _next_cap(self, old: int) -> int:
@@ -145,16 +153,37 @@ class SimRunner:
         self._renderer = (WindowRenderer(self.engine, *self._render_shape)
                           .render_from_frame if self._render else None)
 
+    def _build_reference(self):
+        """The jnp-oracle pipeline (`host_loop.py:133-138,298-300`): prime,
+        multi-step and damped settle of models/simulation.py, and the oracle
+        renderer on the state's fluid view, which loses no pixel pairs
+        (overflow 0)."""
+        self.engine = None
+        cfg, b, bg = self.cfg, self.boundary, self._bgrid
+        self._multi = make_multi_step(cfg, b, bg)
+        self._settle_multi = make_multi_step(cfg, b, bg, damping=0.995)
+        self._renderer = None
+        if self._render:
+            render = make_renderer(cfg, *self._render_shape)
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            self._renderer = lambda sim, frame: (render(sim.fluid), zero)
+
     def _prime(self, g):
+        if self.engine is None:
+            return prime(self._fluid_init, self.boundary, self._bgrid, g, self.cfg)
         return self.engine.prime(self._fluid_init, g)
 
     def _dispatch(self, sim, g_trace):
         """K ticks, then (with a renderer) one frame from the engine's last
-        relayout; stats reduced on the device, render overflow folded in."""
+        relayout (the oracle renders the state itself); stats reduced on the
+        device, render overflow folded in."""
         if self._renderer is None:
             sim, st = self._multi(sim, g_trace)
             return sim, _reduce(st), None
-        sim, st, frame = self._multi(sim, g_trace)
+        if self.engine is None:
+            (sim, st), frame = self._multi(sim, g_trace), None
+        else:
+            sim, st, frame = self._multi(sim, g_trace)
         fb, render_overflow = self._renderer(sim, frame)
         st = _reduce(st)
         st = st._replace(neighbor_overflow=st.neighbor_overflow + render_overflow)

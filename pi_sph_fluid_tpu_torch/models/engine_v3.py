@@ -32,7 +32,7 @@ from ..ops.window.triple import (INERT_X, TripleCtx, TripleSpec,
                                  block_windows, build_frame, triple_spec)
 from ..ops.window.window_kernels import density_window, forces_window
 from ..state import BoundaryState, FluidState
-from .simulation import StepStats
+from .simulation import StepStats, host_gravity
 
 __all__ = ["WindowEngine", "TripleSpec", "PackedSim"]
 
@@ -53,14 +53,6 @@ class PackedSim(NamedTuple):
         p = self.packed
         return FluidState(x=p[:, 0], y=p[:, 1], u=p[:, 2], v=p[:, 3],
                           m=p[:, 4], rho=p[:, 5], p=p[:, 6])
-
-
-def _host_gravity(g) -> np.ndarray:
-    """Gravity as host float32 values: the forces kernel takes g as two
-    float arguments, so reading it never waits for the device."""
-    if isinstance(g, torch.Tensor):
-        g = g.detach().cpu().numpy()
-    return np.asarray(g, np.float32)
 
 
 class WindowEngine:
@@ -158,7 +150,7 @@ class WindowEngine:
     def prime(self, fluid: FluidState, g) -> PackedSim:
         """Step-0 pass (`pi_sph_fluid.c:604-607`) into layout space."""
         pk, ctx, _ = self._relayout(self._initial_packed(fluid))
-        pk, au, av = self._pair_passes(pk, ctx, _host_gravity(g))
+        pk, au, av = self._pair_passes(pk, ctx, host_gravity(g))
         return self._sim(pk, au, av)
 
     def _kick_drift(self, sim: PackedSim) -> torch.Tensor:
@@ -175,7 +167,7 @@ class WindowEngine:
     def _tick(self, sim: PackedSim, g, damp: float):
         """One tick; also returns the relayout's context."""
         pk, ctx, overflow = self._relayout(self._kick_drift(sim))
-        pk, au, av = self._pair_passes(pk, ctx, _host_gravity(g),
+        pk, au, av = self._pair_passes(pk, ctx, host_gravity(g),
                                        self.half_dt, damp)
         sim = self._sim(pk, au, av)
         return sim, self.stats(sim, overflow), ctx
@@ -216,7 +208,7 @@ class WindowEngine:
         if resort_every <= 1:
             def multi_step(sim: PackedSim, g_trace):
                 stats = []
-                for g in _host_gravity(g_trace):
+                for g in host_gravity(g_trace):
                     sim, st, ctx = self._tick(sim, g, damp)
                     stats.append(st)
                 return finish(sim, stats, ctx)
@@ -258,7 +250,7 @@ class WindowEngine:
             return sim, stats, ctx
 
         def multi_step(sim: PackedSim, g_trace):
-            g_trace = _host_gravity(g_trace)
+            g_trace = host_gravity(g_trace)
             n = g_trace.shape[0]
             if n % k:
                 raise ValueError(f"trace length {n} not a multiple of "

@@ -30,6 +30,11 @@ class FluidState(NamedTuple):
     def n(self) -> int:
         return self.x.shape[0]
 
+    def permute(self, order: torch.Tensor) -> "FluidState":
+        """Every field reordered by ``order`` (the counting-sort grid)."""
+        order = order.long()
+        return FluidState(*(f[order] for f in self))
+
 
 class BoundaryState(NamedTuple):
     """Static Akinci boundary particles; ``m`` holds the pseudo-mass psi

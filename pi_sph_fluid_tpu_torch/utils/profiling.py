@@ -8,7 +8,11 @@
   particle-steps/s of ``multi_step(sim, g_trace)`` over repeats, each from
   the same ``sim``, with the device synchronised around each one;
 * ``device_breakdown(fn)``: one call of ``fn`` under ``torch.profiler``:
-  wall time, device time per CUDA kernel, and host synchronisations.
+  wall time, device time per CUDA kernel, and host synchronisations;
+* ``event_ms(fn, reps)``: mean ms of ``fn()`` by CUDA events;
+* ``covered(starts, lens, L)``: the distinct rows of [0, L) that a set of
+  windows touches, and ``bound(nbytes, flops)``: the least time the card
+  could take for them (the H100 SXM peaks), for a kernel's roofline.
 
 Run as a script on the GPU, it measures the pool at 100k and 1M particles
 (bench.py's operating points) at resort_every=1 and 64: the spread of
@@ -36,10 +40,14 @@ from ..models.engine_v3 import WindowEngine
 from ..models.scene import build_pool_scene
 from ..render.metaballs_window import WindowRenderer
 
-__all__ = ["pool_engine", "throughput", "device_breakdown"]
+__all__ = ["pool_engine", "throughput", "device_breakdown", "event_ms",
+           "covered", "bound", "PEAK_BYTES", "PEAK_FLOPS"]
 
 G = (0.0, -9.81)
 N_FRAMES = 20           # rendered frames per breakdown
+# the card's peaks (NVIDIA H100 SXM data sheet, at a 700 W limit): device
+# memory bytes/s and float32 operations/s outside the tensor cores
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 
 
 def pool_engine(n_target: int, device, **engine_kw):
@@ -98,6 +106,41 @@ def device_breakdown(fn, device) -> dict:
     syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
     return dict(wall_s=wall, busy_s=sum(r[1] for r in rows), rows=rows,
                 syncs=syncs)
+
+
+def event_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` back-to-back calls after
+    one warm-up, by CUDA events on the current stream."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def covered(starts: torch.Tensor, lens: torch.Tensor, L: int) -> int:
+    """The distinct rows of [0, L) that the windows [s, s + n) touch, each
+    clamped to [0, L)."""
+    s = starts.reshape(-1).long().clamp(0, L)
+    n = torch.minimum(lens.reshape(-1).long().clamp_min(0), L - s)
+    delta = torch.zeros(L + 1, dtype=torch.int64, device=s.device)
+    delta.index_add_(0, s, torch.ones_like(s))
+    delta.index_add_(0, s + n, -torch.ones_like(s))
+    return int((torch.cumsum(delta, 0)[:L] > 0).sum())
+
+
+def bound(nbytes: int, flops: int) -> dict:
+    """The least time the card could take: the larger of ``nbytes`` over
+    the memory rate and ``flops`` float32 operations over the float32
+    rate, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS
+    return dict(bytes=int(nbytes), flops=int(flops),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def _gravity(n: int) -> np.ndarray:

@@ -143,16 +143,21 @@ def test_convert_roundtrip():
 
 
 def test_port_imports_no_jax_and_cpu_path_launches_nothing():
-    """In a fresh interpreter the port (the renderer, the host loop and the
-    CLI included) leaves JAX out of sys.modules, and a primed CPU run and
-    render go through the plain versions only (counters at 0)."""
+    """In a fresh interpreter the port (the renderer, the host loop, the
+    CLI, the bench, the probes and the jnp oracle included) leaves JAX out
+    of sys.modules, and a primed CPU run, a render and both probes go
+    through the plain versions only (counters at 0)."""
     code = (
         "import sys, torch\n"
         "import pi_sph_fluid_tpu_torch as T\n"
-        "from pi_sph_fluid_tpu_torch import cli, convert\n"
+        "from pi_sph_fluid_tpu_torch import bench, cli, convert\n"
         "from pi_sph_fluid_tpu_torch.io import display, gravity, host_loop, native, web\n"
+        "from pi_sph_fluid_tpu_torch.models import simulation\n"
+        "from pi_sph_fluid_tpu_torch.ops import forces, sph_operators\n"
         "from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk\n"
         "from pi_sph_fluid_tpu_torch.render import metaballs, metaballs_window as mw\n"
+        "from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp\n"
+        "from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up\n"
         "from pi_sph_fluid_tpu_torch.utils import profiling, stats\n"
         "cfg = T.SPHConfig()\n"
         "f, b = T.build_drop_scene(cfg, 'cpu')\n"
@@ -161,9 +166,16 @@ def test_port_imports_no_jax_and_cpu_path_launches_nothing():
         "s, st, fr = e.make_multi_step(return_frame=True)(e.prime(f, (0.0, -9.81)),\n"
         "                                                 [(0.0, -9.81)])\n"
         "fb, ov = T.WindowRenderer(e).render_from_frame(s, fr)\n"
+        "simulation.make_multi_step(cfg, b, g)(simulation.prime(f, b, g, (0.0, -9.81), cfg),\n"
+        "                                      [(0.0, -9.81)])\n"
+        "src, al, un = up.make_starts(4096, 2)\n"
+        "up.window_copy(torch.from_numpy(un), torch.from_numpy(src))\n"
+        "sp.span_density(*sp.make_inputs(256, 1024, 4, 128, 'cpu'), 4, 128)\n"
         "assert wk.density_window.launches == 0, wk.density_window.launches\n"
         "assert wk.forces_window.launches == 0, wk.forces_window.launches\n"
         "assert mw.field_window.launches == 0, mw.field_window.launches\n"
+        "assert up.window_copy.launches == 0, up.window_copy.launches\n"
+        "assert sp.span_density.launches == 0, sp.span_density.launches\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('pi_sph_fluid_tpu.') or m == 'pi_sph_fluid_tpu']\n"
         "assert not bad, bad\n"

@@ -12,6 +12,8 @@ import torch
 
 from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk
 from pi_sph_fluid_tpu_torch.render import metaballs_window as mw
+from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp
+from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up
 from pi_sph_fluid_tpu_torch.utils.profiling import pool_engine
 
 G = (0.0, -9.81)
@@ -106,3 +108,44 @@ def test_field_kernel_matches_plain(rows):
     torch.testing.assert_close(fk, fp, rtol=1e-5, atol=5e-5)
     confident = (fp - 1.0).abs() > 1e-3
     assert torch.equal((fk >= 1.0)[confident], (fp >= 1.0)[confident])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["aligned", "unaligned", "broken_promise"])
+def test_window_copy_kernel_matches_plain(form):
+    """Bitwise, from 128-aligned starts (16-byte loads), from odd starts
+    (4-byte loads), and from odd starts under the aligned promise (the
+    kernel's 4-byte fallback); an L that is not a multiple of 4 included;
+    one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    for L, n_tiles in ((1 << 14, 16), ((1 << 14) + 3, 5)):
+        src, al, un = up.make_starts(L, n_tiles, seed=1)
+        starts = torch.from_numpy(al if form == "aligned" else un).cuda()
+        src = torch.from_numpy(src).cuda()
+        before = up.window_copy.launches
+        got = up.window_copy(starts, src, aligned=form != "unaligned")
+        want = up.window_copy_plain(starts, src)
+        torch.cuda.synchronize()
+        assert up.window_copy.launches == before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(sp.VARIANTS))
+def test_span_density_kernel_matches_plain(variant):
+    """Within rtol 1e-5 of max |out| (another summation order, and nvcc's
+    FMA contraction); one launch counted; w_s rows past n_tiles unread."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    spans, span_cap = sp.VARIANTS[variant]
+    q, src, w_s = sp.make_inputs(8192, 20_000, spans, span_cap, "cuda", seed=2)
+    w_s = torch.cat([w_s, torch.full_like(w_s[:8], -(1 << 30))])
+    before = sp.span_density.launches
+    got = sp.span_density(q, src, w_s, spans, span_cap)
+    want = sp.span_density_plain(q, src, w_s, spans, span_cap)
+    torch.cuda.synchronize()
+    assert sp.span_density.launches == before + 1
+    scale = float(want.abs().max())
+    assert scale > 0.0
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
