@@ -11,16 +11,21 @@ Phases, each printing its own line with its seconds:
    sources, one nvcc per source, all started together, with ptxas's
    registers and spills for each;
 3. kernels against their plain PyTorch versions on one relayout of the
-   100k pool (the field kernel through the renderer's frame inputs at
-   64x128), with times for both, each kernel's window lanes
-   (sum of min(w_len, cap), and the distinct candidate rows they touch)
-   and its bound on this card;
+   100k pool (density and forces through the relayout's span table, at the
+   default cap and again at cap=1024, the live run's, on the pool squeezed
+   until a window spans several staged chunks; the field kernel
+   through the renderer's frame inputs at 64x128), with times for both,
+   each kernel's window lanes (sum of min(w_len, cap), and the distinct
+   candidate rows they touch) and its bound on this card; then the host
+   microseconds per launch of each of the five wrappers (launch_host);
 4. the 100k pool (bench.py's operating point) through WindowEngine: prime,
    64 ticks at resort_every=1, 384 ticks at resort_every=64; the launch
    counters must grow by exactly one per tick; the plain path's ms/tick on
-   a short run beside the kernel path's;
+   a short run beside the kernel path's; and a profiler check that the 62
+   more carried ticks of a 64-tick sticky group over a 2-tick one add no
+   host sync, no ``index_select``, no ``index`` and no ``cat``;
 5. the 3k-particle C golden drop, all 2000 steps through the kernels;
-6. the 1M pool: 64 ticks at resort_every=64;
+6. the 1M pool: 64 ticks at resort_every=64, after one warm-up group;
 7. render: render_from_frame ms per frame at 64x128 and 256x128 on the
    100k and 1M pools' last relayout frames (CUDA events, 20 frames after
    one warm-up), render overflow 0;
@@ -43,7 +48,8 @@ Phases, each printing its own line with its seconds:
    shape and form the scripts run (the copy bitwise, the span within rtol
    1e-5 of max |out|), with CUDA-event ms, the plain version's ms, the
    profiler's device time, bytes, FLOPs and the bound, the copy's library
-   call (``src[:, idx]``) and the aligned/unaligned, B/A and C/A ratios;
+   call (``src[:, idx]``) by events and by device time, and the
+   aligned/unaligned, B/A and C/A ratios;
 12. bench: ``python -m pi_sph_fluid_tpu_torch.bench`` in a subprocess at its
    defaults; its JSON line must show overflow, stale and render overflow 0;
 13. oracle: the reference backend on the card: the 269 drop through step
@@ -82,10 +88,12 @@ from pi_sph_fluid_tpu_torch.ops.window import _build  # noqa: E402
 from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk  # noqa: E402
 from pi_sph_fluid_tpu_torch.models import simulation  # noqa: E402
 from pi_sph_fluid_tpu_torch.render import metaballs_window as mw  # noqa: E402
+from pi_sph_fluid_tpu_torch.tools import launch_probe  # noqa: E402
 from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp  # noqa: E402
 from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up  # noqa: E402
-from pi_sph_fluid_tpu_torch.utils.profiling import (bound, covered,  # noqa: E402
-                                                    device_breakdown, event_ms,
+from pi_sph_fluid_tpu_torch.utils.profiling import (bound, call_device_ms,  # noqa: E402
+                                                    covered, device_breakdown,
+                                                    event_ms, kernel_device_ms,
                                                     pool_engine)
 
 G = (0.0, -9.81)
@@ -97,6 +105,8 @@ N_WARM, N_R1, N_R64, N_PLAIN = 8, 64, 384, 16
 N_FRAMES = 20           # render_from_frame timings, after one warm-up
 SHAPES = ((64, 128), (256, 128))
 RUN_DISPATCHES = 30     # cli run: dispatches of one 60 Hz frame each
+LIVE_CAP = 1024         # the live run's cap (the runner's ceiling)
+SQUEEZE = 0.6           # the pool squeezed to this: windows of several chunks
 RECOVERY_DISPATCHES = 24  # cli run at the defaults: 0.4 s, past the startup jets
 BENCH_TIMEOUT = 600     # seconds for the bench subprocess
 ORACLE_GATES = {100: (5e-6, 5e-5), 200: (1e-5, 1e-4), 500: (1e-4, 5e-3)}
@@ -114,11 +124,17 @@ KERNELS = {
     "span_density": (sp.span_density, "tools/span_dma_probe.py:38", PROBE_SRC),
 }
 SIM_KERNELS = ("density_window", "forces_window", "field_window")
-# float32 operations per pair lane (sqrt, max and select counted as one)
-# and device-memory bytes per query row (inputs read, outputs written once)
-# and per window lane; a pixel needs only its x and y of the query row
+# float32 operations per pair lane (sqrt, max and select counted as one;
+# far_flops where the kernel needs only dx, dy, r^2 and the compare of a lane
+# out of the query's reach, whose term is 0),
+# device-memory bytes per query row (inputs read, outputs written once) and
+# per distinct candidate row.  Density and forces read their fluid
+# candidates from arrays the query rows already count in full (the packed
+# state, geo8), so only a distinct boundary row adds bytes (lane_bytes);
+# the field kernel reads a gathered candidate array, 16 B a distinct row,
+# and a pixel needs only its x and y of the query row
 COST = {"density_window": dict(flops=16, row_bytes=32 + 32 + 8, lane_bytes=16),
-        "forces_window": dict(flops=39, row_bytes=32 + 32 + 8 + 32 + 8, lane_bytes=32),
+        "forces_window": dict(flops=39, far_flops=6, row_bytes=32 + 32 + 8 + 32 + 8, lane_bytes=32),
         "field_window": dict(flops=17, row_bytes=8 + 4, lane_bytes=16)}
 
 
@@ -159,24 +175,65 @@ def _bound(name: str, n_rows: int, qb: int, w_start, w_len, cap: int, L: int) ->
                 **bound(nbytes, qb * lanes * c["flops"]))
 
 
+def _pairs_in_reach(pk, b_geo, spans, cfg, spec) -> int:
+    """(query, lane) pairs of these inputs whose candidate lies within the
+    support radius 2H of the query, r^2 < (2H)^2 in float32: the lanes whose
+    term is not 0.  Counted over the lanes the kernels compute (the plain
+    versions' own lane table), in the plain versions' chunks of blocks."""
+    n_blocks, qb = spec.n_layout // spec.qb, spec.qb
+    xy = torch.cat([pk[:, 0:2], b_geo[:, 0:2]])
+    reach2 = (2.0 * cfg.h) ** 2
+    step, pairs = wk._chunk(spec), 0
+    for b0 in range(0, n_blocks, step):
+        b1 = min(b0 + step, n_blocks)
+        idx, valid = wk._span_lanes(spans, b0, b1, spec.cap, spec.n_layout,
+                                    b_geo.shape[0])
+        cand = xy[idx]                                      # (nb, lanes, 2)
+        q = pk[b0 * qb:b1 * qb, 0:2].reshape(b1 - b0, qb, 1, 2)
+        d = q - cand[:, None]
+        near = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) < reach2
+        pairs += int((near & valid[:, None, :]).sum())
+    return pairs
+
+
+def _span_bound(name: str, spec, spans, n_bnd: int, in_reach: int) -> dict:
+    """The bound of a span-fed kernel (density, forces) for these inputs:
+    bytes (every query row's inputs and outputs, the span table, each
+    distinct boundary row once; the fluid candidates are rows of arrays
+    the query rows already count) over the memory rate, against its
+    pair-lane operations over the float32 rate.  Lanes are sum min(sum of
+    span lengths, cap), each span clamped into its array as the kernels
+    clamp it; the distinct candidate rows are counted over the spans.
+    ``in_reach`` of the qb x lanes pairs (_pairs_in_reach) take the
+    kernel's full operation count; the others take ``far_flops`` where the
+    kernel has one (forces: a lane out of reach adds exactly 0 and needs
+    only the distance test), else the full count too (density computes
+    every lane)."""
+    c = COST[name]
+    sp_ = spans.long()
+    half = sp_.shape[1] // 2
+    rows, total = [], 0
+    for part, n_src in ((sp_[:, :half], spec.n_layout), (sp_[:, half:], n_bnd)):
+        start = part[..., 0].clamp(0, n_src)
+        length = torch.minimum(part[..., 1].clamp_min(0), n_src - start)
+        rows.append(covered(start, length, n_src))
+        total = total + length.sum(1)
+    lanes = int(total.clamp_max(spec.cap).sum())
+    nbytes = (spec.n_layout * c["row_bytes"] + spans.numel() * 4
+              + rows[1] * c["lane_bytes"])
+    pairs = spec.qb * lanes
+    assert 0 < in_reach <= pairs, (in_reach, pairs)
+    flops = (in_reach * c["flops"]
+             + (pairs - in_reach) * c.get("far_flops", c["flops"]))
+    return dict(window_lanes=lanes, candidate_rows=sum(rows),
+                pairs_in_reach=in_reach, every_lane_flops=pairs * c["flops"],
+                **bound(nbytes, flops))
+
+
 def _device_ms(fn, name: str, n: int = 20) -> float:
-    """The profiler's device time per launch of the CUDA kernel
-    ``<name>_kernel``, averaged over the launches it recorded of ``n``
-    calls of ``fn``.  It records some, not all: on an H100 it missed the
-    first launches of a fast loop, and late in this script it kept 8 of 20,
-    so the calls wait 50 ms first and at least one must be recorded."""
-
-    def calls():
-        time.sleep(0.05)
-        for _ in range(n):
-            fn()
-
-    fn()
-    b = device_breakdown(calls, DEV)
-    rows = [(sec, cnt) for key, sec, cnt in b["rows"] if f"{name}_kernel" in key]
-    count = sum(c for _, c in rows)
-    assert 1 <= count <= n, (name, count, b["rows"][:5])
-    return sum(sec for sec, _ in rows) * 1e3 / count
+    """The profiler's device ms per launch of the CUDA kernel
+    ``<name>_kernel`` (utils/profiling.py::kernel_device_ms)."""
+    return kernel_device_ms(fn, f"{name}_kernel", DEV, n)
 
 
 def _check_state(sim, stats, what: str) -> None:
@@ -189,27 +246,34 @@ def _check_state(sim, stats, what: str) -> None:
     assert speed < 40.0, f"{what}: max speed {speed} m/s breaks the C/10 bound"
 
 
-def compare_kernels(eng, fluid, results: dict) -> None:
-    """Each kernel against its plain version on one relayout of the pool,
-    with seeded random velocities (N(0, 0.5) m/s) so that the viscosity
-    term is live, and a nonzero half-kick and damping so that the fused
-    epilogue is too.  Tolerances (tests/test_torch_window.py): rho rtol
-    1e-6; p rtol 1e-4 / atol 0.05 plus rho's tolerance carried through the
-    Tait power; acc rtol 2e-5 / atol 2e-4; u' and v' within half_dt times
-    the acc bound plus 2 ulp; every copied column bitwise.  The sums run in
-    another order (warp-strided lanes and a shuffle tree against torch's
-    reduction) and nvcc contracts a*b + c into FMAs; nothing else differs."""
+def compare_physics(eng, fluid, squeeze: float = 1.0) -> dict:
+    """The density and the forces kernel against their plain versions on one
+    relayout of the pool, through the relayout's span table, with seeded
+    random velocities (N(0, 0.5) m/s) so that the viscosity term is live,
+    and a nonzero half-kick and damping so that the fused epilogue is too.
+    Tolerances (tests/test_torch_window.py): rho rtol 1e-6; p rtol 1e-4 /
+    atol 0.05 plus rho's tolerance carried through the Tait power; acc rtol
+    2e-5 / atol 2e-4; u' and v' within half_dt times the acc bound plus 2
+    ulp; every copied column bitwise.  The sums run in another order (lanes
+    strided over a group of threads and a shuffle tree against torch's
+    reduction) and nvcc contracts a*b + c into FMAs; nothing else differs.
+    ``squeeze`` < 1 scales the pool's x and y toward the corner, so that
+    the windows grow past one staged chunk; the pressures of such a state
+    are ~1e4 times the settled pool's and cancel in the sum, so there the
+    absolute tolerance of acc is 1e-6 of max |acc|.
+    Returns {kernel: its numbers} and the relayout for the field kernel."""
     cfg, spec = eng.cfg, eng.spec
     rng = np.random.default_rng(3)
-    fluid = fluid._replace(**{
+    fluid = fluid._replace(x=fluid.x * squeeze, y=fluid.y * squeeze, **{
         k: torch.from_numpy(rng.normal(0.0, 0.5, fluid.n).astype(np.float32)).to(DEV)
         for k in ("u", "v")})
     pk, ctx, ov = eng._relayout(eng._initial_packed(fluid))
     assert int(ov) == 0, f"relayout overflow {int(ov)}"
-    trip = ctx.trip_src.long()
-    geo_d = torch.cat([torch.cat([pk[:, [0, 1, 4]], torch.zeros_like(pk[:, :1])], 1),
-                       eng._tail_d]).index_select(0, trip)
-    d_args = (pk, geo_d, ctx.w_start, ctx.flen, cfg, spec)
+    assert torch.equal(ctx.spans[:, :, 1].sum(1), ctx.w_len.reshape(-1)), \
+        "span lengths do not sum to w_len"
+    n_bnd = eng._b_geo_d.shape[0]
+    in_reach = _pairs_in_reach(pk, eng._b_geo_d, ctx.spans, cfg, spec)
+    d_args = (pk, eng._b_geo_d, ctx.spans, cfg, spec)
     g8k, rpk = wk.density_window(*d_args)
     g8p, rpp = wk.density_window_plain(*d_args)
     _sync()
@@ -222,27 +286,75 @@ def compare_kernels(eng, fluid, results: dict) -> None:
         f"density: max |d_p| {float(dp.max())}"
     assert torch.equal(g8k[:, [0, 1, 2, 3, 4, 7]], g8p[:, [0, 1, 2, 3, 4, 7]])
 
-    geo_f = torch.cat([g8p, eng._tail_f]).index_select(0, trip)
-    f_args = (pk, g8p, rpp, geo_f, ctx.w_start, ctx.flen, G, cfg, spec,
+    f_args = (pk, g8p, rpp, eng._b_geo_f, ctx.spans, G, cfg, spec,
               eng.half_dt, 0.97)
     pkk, acck = wk.forces_window(*f_args)
     pkp, accp = wk.forces_window_plain(*f_args)
     _sync()
     dacc = (acck - accp).abs()
-    assert bool((dacc <= 2e-4 + 2e-5 * accp.abs()).all()), \
+    atol = 2e-4 if squeeze == 1.0 else max(2e-4, 1e-6 * float(accp.abs().max()))
+    assert bool((dacc <= atol + 2e-5 * accp.abs()).all()), \
         f"forces: max |d_acc| {float(dacc.max())}"
     uv_k, uv_p = pkk[:, 2:4], pkp[:, 2:4]
-    uv_bound = (eng.half_dt * (2e-4 + 2e-5 * accp.abs())
+    uv_bound = (eng.half_dt * (atol + 2e-5 * accp.abs())
                 + 2 * torch.finfo(torch.float32).eps * uv_p.abs())
     duv = (uv_k - uv_p).abs()
     assert bool((duv <= uv_bound).all()), f"forces: max |d_uv| {float(duv.max())}"
     assert torch.equal(pkk[:, [0, 1, 4, 5, 6, 7]], pkp[:, [0, 1, 4, 5, 6, 7]]), \
         "forces: a copied pk_next column differs"
-    pk0, _ = wk.forces_window(pk, g8p, rpp, geo_f, ctx.w_start, ctx.flen, G,
-                              cfg, spec, 0.0, 1.0)
+    pk0, _ = wk.forces_window(pk, g8p, rpp, eng._b_geo_f, ctx.spans, G, cfg,
+                              spec, 0.0, 1.0)
     assert torch.equal(pk0[:, 2:4], pk[:, 2:4]), "priming pass moved u, v"
 
-    # the field kernel over the renderer's inputs for this frame (64x128)
+    out = {
+        "density_window": dict(
+            max_abs_err=float((rho_k - rho_p).abs().max()),
+            ms=event_ms(lambda: wk.density_window(*d_args), 50),
+            plain_ms=event_ms(lambda: wk.density_window_plain(*d_args), 5),
+            device_ms=_device_ms(lambda: wk.density_window(*d_args), "density_window"),
+            **_span_bound("density_window", spec, ctx.spans, n_bnd, in_reach)),
+        "forces_window": dict(
+            max_abs_err=float(dacc.max()),
+            ms=event_ms(lambda: wk.forces_window(*f_args), 50),
+            plain_ms=event_ms(lambda: wk.forces_window_plain(*f_args), 5),
+            device_ms=_device_ms(lambda: wk.forces_window(*f_args), "forces_window"),
+            **_span_bound("forces_window", spec, ctx.spans, n_bnd, in_reach))}
+    print(f"  cap {spec.cap} windows: mean {float(ctx.w_len.float().mean()):.1f} lanes, "
+          f"longest {int(ctx.w_len.max())}", flush=True)
+    print(f"  cap {spec.cap} density: max rel d_rho {rel_rho:.3e}, "
+          f"max |d_p| {float(dp.max()):.3e} Pa; forces: max |d_acc| "
+          f"{float(dacc.max()):.3e} m/s^2, max |d_uv| {float(duv.max()):.3e} m/s",
+          flush=True)
+    for name, r in out.items():
+        print(f"  cap {spec.cap} {name}: kernel {r['ms']:.4f} ms, device "
+              f"{r['device_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
+              f"sum min(w_len, cap) {r['window_lanes']} lanes, "
+              f"{r['candidate_rows']} distinct candidate rows, "
+              f"{r['pairs_in_reach']} of {spec.qb * r['window_lanes']} pairs in "
+              f"reach, {r['bytes']} B, {r['flops']} FLOP ({r['every_lane_flops']} "
+              f"at the full count on every lane): bound {r['bound_ms']:.6f} ms "
+              f"by {r['bound_by']}", flush=True)
+    return out, (pk, ctx)
+
+
+def compare_kernels(eng, fluid, results: dict) -> None:
+    """Each kernel against its plain version on one relayout of the pool:
+    density and forces (compare_physics) at the engine's cap and again at
+    cap=1024, the live run's, on the pool squeezed to 0.6 of its width and
+    height, as dense as the live run's collapse, where a window spans
+    several staged chunks; then the field kernel over the renderer's inputs for the same
+    frame at 64x128 (scaled field within rtol 1e-5 / atol 5e-5, lit pixels
+    identical away from the threshold)."""
+    cfg = eng.cfg
+    physics, (pk, ctx) = compare_physics(eng, fluid)
+    for name, r in physics.items():
+        results[name].update(r)
+    dense, (_, dense_ctx) = compare_physics(
+        pool_engine(N_POOL, DEV, cap=LIVE_CAP)[0], fluid, SQUEEZE)
+    assert int(dense_ctx.w_len.max()) > 256, int(dense_ctx.w_len.max())   # > one chunk
+    for name, r in dense.items():
+        results[name]["cap1024"] = r
+
     rend = mw.WindowRenderer(eng, *SHAPES[0])
     zero = torch.zeros_like(pk[:, 0])
     sim = T.PackedSim(packed=pk, ids=pk[:, 7].int(), au=zero, av=zero)
@@ -258,46 +370,21 @@ def compare_kernels(eng, fluid, results: dict) -> None:
     confident = (fp - 1.0).abs() > 1e-3
     assert torch.equal((fk >= 1.0)[confident], (fp >= 1.0)[confident]), \
         "field: a lit pixel away from the threshold differs"
-
-    results["density_window"].update(
-        max_abs_err=float((rho_k - rho_p).abs().max()),
-        ms=event_ms(lambda: wk.density_window(*d_args), 50),
-        plain_ms=event_ms(lambda: wk.density_window_plain(*d_args), 5),
-        **_bound("density_window", spec.n_layout, spec.qb, ctx.w_start,
-                 ctx.flen, spec.cap, geo_d.shape[0]))
-    results["forces_window"].update(
-        max_abs_err=float(dacc.max()),
-        ms=event_ms(lambda: wk.forces_window(*f_args), 50),
-        plain_ms=event_ms(lambda: wk.forces_window_plain(*f_args), 5),
-        **_bound("forces_window", spec.n_layout, spec.qb, ctx.w_start,
-                 ctx.flen, spec.cap, geo_f.shape[0]))
     rspec = rend.reuse_spec
-    results["field_window"].update(
+    r = results["field_window"]
+    r.update(
         max_abs_err=float(dfield.max()),
         ms=event_ms(lambda: mw.field_window(*r_args), 50),
         plain_ms=event_ms(lambda: mw.field_window_plain(*r_args), 5),
+        device_ms=_device_ms(lambda: mw.field_window(*r_args), "field_window"),
         **_bound("field_window", rspec.n_layout, rspec.qb, ws_r, wl_r,
                  rspec.cap, geo_r.shape[0]))
-    for name, fn in (("density_window", lambda: wk.density_window(*d_args)),
-                     ("forces_window", lambda: wk.forces_window(*f_args)),
-                     ("field_window", lambda: mw.field_window(*r_args))):
-        results[name]["device_ms"] = _device_ms(fn, name)
-    print(f"  density: max rel d_rho {rel_rho:.3e}, max |d_p| {float(dp.max()):.3e} Pa; "
-          f"kernel {results['density_window']['ms']:.4f} ms, "
-          f"plain {results['density_window']['plain_ms']:.4f} ms", flush=True)
-    print(f"  forces: max |d_acc| {float(dacc.max()):.3e} m/s^2, "
-          f"max |d_uv| {float(duv.max()):.3e} m/s; "
-          f"kernel {results['forces_window']['ms']:.4f} ms, "
-          f"plain {results['forces_window']['plain_ms']:.4f} ms", flush=True)
     print(f"  field (64x128, cap {rspec.cap}): max |d_field| {float(dfield.max()):.3e}; "
-          f"kernel {results['field_window']['ms']:.4f} ms, "
-          f"plain {results['field_window']['plain_ms']:.4f} ms", flush=True)
-    for name in SIM_KERNELS:
-        r = results[name]
-        print(f"  {name}: sum min(w_len, cap) {r['window_lanes']} lanes, "
-              f"{r['candidate_rows']} distinct candidate rows, {r['bytes']} B, "
-              f"{r['flops']} FLOP: bound {r['bound_ms']:.6f} ms by {r['bound_by']}",
-              flush=True)
+          f"kernel {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms; sum min(w_len, cap) {r['window_lanes']} lanes, "
+          f"{r['candidate_rows']} distinct candidate rows, {r['bytes']} B, "
+          f"{r['flops']} FLOP: bound {r['bound_ms']:.6f} ms by {r['bound_by']}",
+          flush=True)
 
 
 def run_pool(eng, fluid) -> dict:
@@ -335,7 +422,35 @@ def run_pool(eng, fluid) -> dict:
         step(sim0, _gravity(N_PLAIN))
         _sync()
         out["plain_r1_ms_per_tick"] = (time.perf_counter() - t0) / N_PLAIN * 1e3
+    out.update(check_carried_ticks(eng, sim0))
     return out
+
+
+def check_carried_ticks(eng, sim0) -> dict:
+    """A carried tick of a sticky group must cost the host no wait and the
+    device no row gather: a 64-tick group and a 2-tick group hold one
+    relayout each, so whatever the profiler counts more of in the first
+    belongs to its 62 more carried ticks.  Counted on the host side, where
+    the trace is complete: ``cudaStreamSynchronize`` calls and the calls of
+    ``aten::index_select``, ``aten::index`` and ``aten::cat``; and no
+    ``index_select`` kernel may show in the device trace of either group."""
+    counts = {}
+    for k in (2, 64):
+        multi = eng.make_multi_step(resort_every=k)
+        multi(sim0, _gravity(k))
+        b = device_breakdown(lambda: multi(sim0, _gravity(k)), DEV)
+        counts[k] = dict(syncs=b["syncs"], **{
+            op: b["ops"].get(f"aten::{op}", 0) for op in ("index_select", "index", "cat")})
+        # on the device side no relayout launches an index_select either, so
+        # the whole group must show none (the device trace may drop launches,
+        # the host-side counts above may not)
+        gathers = [key for key, _, _ in b["rows"]
+                   if "index_select" in key or "indexSelect" in key]
+        assert not gathers, gathers
+    extra = {f"carried_{key}_per_tick": (counts[64][key] - counts[2][key]) / 62
+             for key in counts[2]}
+    assert all(v == 0 for v in extra.values()), (extra, counts)
+    return dict(extra, index_select_kernels=0, group_of_2=json.dumps(counts[2]))
 
 
 def run_golden() -> dict:
@@ -393,6 +508,12 @@ def run() -> dict:
     _phase("kernels_vs_plain", t0, n_fluid=fluid.n, n_layout=eng.n_layout, L=eng.spec.L)
 
     t0 = time.perf_counter()
+    host = launch_probe.measure(DEV)
+    for name, r in host.items():
+        results[name]["host_us"] = r["host_us"]
+    _phase("launch_host", t0, **{f"{k}_us": f"{v['host_us']:.2f}" for k, v in host.items()})
+
+    t0 = time.perf_counter()
     pool = run_pool(eng, fluid)
     frames = {"100k": (eng,) + pool.pop("last")}
     _phase("pool_100k", t0, n_fluid=fluid.n, **pool)
@@ -405,6 +526,7 @@ def run() -> dict:
     big, big_fluid = pool_engine(N_BIG, DEV)
     sim = big.prime(big_fluid, G)
     multi = big.make_multi_step(resort_every=64, return_frame=True)
+    multi(sim, _gravity(64))    # warm-up: the allocator's first 1M-row blocks
     _sync()
     t1 = time.perf_counter()
     sim, st, frame = multi(sim, _gravity(64))
@@ -538,7 +660,7 @@ def run_runner() -> dict:
     long fine-resolution runs, --dt-factor 0.4, and starts at the runner's
     cap ceiling, 1024: no recovery, one frame per dispatch.  The defaults
     go through the recoveries (run_recovery)."""
-    res, k, counts, imgs = _cli_run(RUN_DISPATCHES, 0.4, "--cap", "1024")
+    res, k, counts, imgs = _cli_run(RUN_DISPATCHES, 0.4, "--cap", str(LIVE_CAP))
     assert res.recoveries == 0, f"{res.recoveries} recoveries"
     assert res.dispatches == RUN_DISPATCHES == len(imgs), (res.dispatches, len(imgs))
     # the top page (rows 0-7) is dark until the wall run-up reaches it
@@ -603,6 +725,7 @@ def run_probes(results: dict) -> dict:
             idx = (starts.long()[..., None]
                    + torch.arange(up.CAP, device=DEV)).contiguous()
             case["library_ms"] = event_ms(lambda: src[:, idx], 20)
+            case["library_device_ms"] = call_device_ms(lambda: src[:, idx], DEV)
             cases[f"copy_L{L}_{form}"] = case
         del src, got
     for n_layout, L in sp.SHAPES:
@@ -616,7 +739,7 @@ def run_probes(results: dict) -> dict:
             case = _case(lambda: sp.span_density(q, src, w_s, spans, cap),
                          lambda: sp.span_density_plain(q, src, w_s, spans, cap),
                          "span_density", sp.span_cost(q, src, w_s, spans, cap), err)
-            case["library_ms"] = None
+            case["library_ms"] = case["library_device_ms"] = None
             cases[f"span_n{n_layout}_{v}"] = case
         del q, src, w_s, got, want
     # the kernels line carries each probe at its JAX probe's own shape (the
@@ -629,7 +752,8 @@ def run_probes(results: dict) -> dict:
         results[name]["cases"] = {k: v for k, v in cases.items() if k.startswith(prefix)}
     for key, c in cases.items():
         print(f"  {key}: kernel {c['ms']:.4f} ms, device {c['device_ms']:.4f} ms, "
-              f"plain {c['plain_ms']:.4f} ms, library {c['library_ms']} ms; "
+              f"plain {c['plain_ms']:.4f} ms, library {c['library_ms']} ms, "
+              f"library device {c['library_device_ms']} ms; "
               f"{c['bytes']} B, {c['flops']} FLOP, bound {c['bound_ms']:.6f} ms by "
               f"{c['bound_by']}, share {c['share']:.3f}; max |err| {c['max_abs_err']:.3e}",
               flush=True)

@@ -9,24 +9,65 @@
 // stream it is given, allocates nothing, and returns cudaGetLastError().
 //
 // Layout (see ops/window/triple.py): the query layout is n_blocks blocks of qb
-// consecutive rows of an (n_layout, 8) float32 array; block b's candidates are
-// the contiguous rows [w_start[b], w_start[b] + w_len[b]) of a row-major
-// candidate array, (L, 4) for density and (L, 8) for forces.  Lanes past
-// w_len are not computed: in the TPU kernels they are real particles at least
-// one whole cell (2H) away, or inert pads, so the support clamp
-// max(1 - r/2H, 0) makes them contribute exactly 0 (or, where rounding leaves
-// 1 - r/2H at one ulp above 0, a term below 1e-28 of the sum's scale).
+// consecutive rows of an (n_layout, 8) float32 array.
 //
-// Threads: one CUDA block per query block (blockDim = 32 * qb), one warp per
-// query.  The block stages its window (at most cap candidates) in shared
-// memory once (the field kernel in fixed chunks), every warp strides its
-// lanes over it, and a __shfl_xor_sync butterfly reduces the warp's partial
-// sums; lane 0 runs the per-query
-// epilogue.  Pad queries (m = 0) produce 0/0 and inf lanes; their outputs are
-// replaced by a conditional select, never multiplied by a mask.
+// Density and forces read a block's candidates through its span table
+// (block_spans): ns [start, len] pairs, the first ns/2 naming contiguous runs
+// of layout-order fluid rows, the other ns/2 contiguous runs of the static
+// boundary rows.  Laid end to end in span order they are the lanes of the
+// block's window; the kernels compute the first min(sum len, cap) of them.
+// No candidate array is gathered beforehand: the density kernel reads fluid
+// candidates from the packed state itself and the forces kernel from the
+// density kernel's geo8 output, so the rows are the current tick's even when
+// the spans are an earlier relayout's (a sticky layout).  Every span is
+// clamped into its array, so no table can make a kernel read outside it.
+// Lanes inside a window but outside a query's 3x3 stencil are real particles
+// at least one whole cell (2H) away, so the support clamp max(1 - r/2H, 0)
+// makes them contribute exactly 0 (or, where rounding leaves 1 - r/2H at one
+// ulp above 0, a term below 1e-28 of the sum's scale): no per-lane masks.
+//
+// Threads (density, forces): the pair math of a window is a few thousand
+// short dependent chains, and what bounds it on this card is latency and
+// the rate at which an SM starts operations, not bytes.  So a query gets a
+// group of G threads of one warp (G = 2 for density, 4 for forces: 16 or 8
+// queries a warp), each thread strides the staged lanes by G, and log2(G)
+// rounds of __shfl_xor_sync reduce the group; a CUDA block is NQB = 2 query blocks (qb * G threads each), 64
+// or 128 threads at qb = 16, small enough that many blocks are resident per
+// SM and the loads of one overlap the math of the others.  The lanes are
+// staged in shared memory CHUNK at a time (4 KB a query block for
+// density, 8 KB for forces, whatever the cap), read span by span with
+// coalesced loads; the groups of a warp read the same staged lanes, which
+// shared memory serves as one broadcast.  Each thread loads its query row
+// before the staging, so that latency is hidden behind it.
+//
+// Lanes out of reach: the forces kernel spends ~80 machine operations on a
+// lane, and about five lanes in six lie outside the query's support (85% of
+// the query-lane pairs of the 100k pool), where the lane's term is exactly 0.  A thread therefore runs ahead over its lanes
+// with the cheap part alone (dx, dy, r^2 against reach2()) and does the full
+// arithmetic, unchanged, only on lanes in reach; the threads of a warp meet
+// again for it.  A non-finite r^2 counts as in reach, so a dead position still
+// poisons the sums it always poisoned.  This is the one place where the
+// kernel departs from the TPU kernel and from the plain version, which
+// compute NaN * 0 on such a lane: a far lane's non-finite cp, re or velocity
+// does not reach the queries it is out of reach of (its own row is
+// non-finite, which the stats scream counts).  The density kernel's full lane
+// is ~20 machine operations and the same split made it slower (measured on
+// an H100), so it computes every lane.
+//
+// The field kernel reads one contiguous window [w_start, w_start + w_len) of
+// a gathered (L, 4) candidate array per block, one warp per pixel.
+//
+// Pad queries (m = 0) produce 0/0 and inf lanes; their outputs are replaced by
+// a conditional select, never multiplied by a mask.
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
+
+// Thread mapping of the density and forces kernels (see "Threads" above), set
+// by measurement on an H100 80GB HBM3 at 700 W; no caller's parameter.
+constexpr int DENSITY_G = 2, DENSITY_NQB = 2;
+constexpr int FORCES_G = 4, FORCES_NQB = 2;
 
 namespace {
 
@@ -41,6 +82,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Sum over an aligned group of G lanes of a warp; every lane of the warp calls.
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // The block's window, clamped to the candidate array: [start, start + n).
 __device__ __forceinline__ int window(const int* w_start, const int* w_len,
                                       int cap, int L, int* start) {
@@ -51,129 +100,261 @@ __device__ __forceinline__ int window(const int* w_start, const int* w_len,
   return max(0, min(len, L - s));
 }
 
+// r^2 past which a lane's support clamp max(1 - r/2H, 0) is exactly 0: the
+// square of 2H = 1 / half_inv_h, widened by 1e-4 so that every lane the
+// rounding of sqrt and of the clamp could leave above 0 stays inside.
+__device__ __forceinline__ float reach2(float half_inv_h) {
+  const float two_h = 1.f / half_inv_h;
+  return two_h * two_h * 1.0001f;
+}
+
+constexpr int MAX_SPANS = 16;  // window_kernels.py checks n_spans against it
+constexpr int CHUNK = 256;     // lanes staged at once per query block
+
+// A query block's span table in shared memory, each span clamped into its
+// array (fluid rows [0, n_fluid), boundary rows [0, n_bnd)).
+struct SpanTable {
+  int start[MAX_SPANS];
+  int len[MAX_SPANS];
+};
+
+// Threads tl, tl + nt, ... of the query block fill its table; the caller
+// synchronises before anyone reads it.
+__device__ __forceinline__ void load_spans(const int2* __restrict__ spans_b,
+                                           int ns, int n_fluid, int n_bnd,
+                                           int tl, int nt, SpanTable& t) {
+  for (int k = tl; k < ns; k += nt) {
+    const int2 s = spans_b[k];
+    const int n_src = 2 * k < ns ? n_fluid : n_bnd;
+    const int st = max(0, min(s.x, n_src));
+    t.start[k] = st;
+    t.len[k] = max(0, min(s.y, n_src - st));
+  }
+}
+
+// Lanes the query block computes: min(sum len, cap).
+__device__ __forceinline__ int span_lanes(const SpanTable& t, int ns, int cap) {
+  int n = 0;
+  for (int k = 0; k < ns; ++k) n += t.len[k];
+  return min(n, cap);
+}
+
+// Where a thread sits: CUDA block -> NQB query blocks of qb queries -> G
+// threads a query.  Threads past the last query block of the grid, or past
+// NQB * qb * G in a block rounded up to whole warps, are not `active`: they
+// take part in every barrier and shuffle and touch no memory.
+template <int G, int NQB>
+struct Place {
+  int lb, tl, nt, b, i, g;
+  bool active;
+  __device__ __forceinline__ Place(int n_blocks, int qb) {
+    nt = qb * G;
+    lb = threadIdx.x / nt;
+    tl = threadIdx.x - lb * nt;
+    b = blockIdx.x * NQB + lb;
+    active = lb < NQB && b < n_blocks;
+    if (!active) lb = 0;
+    i = b * qb + tl / G;
+    g = tl % G;
+  }
+};
+
 // Replaces _density_kernel (pi_sph_fluid_tpu/ops/pallas/window_kernels.py:192).
 //
 // rho_i = norm * sum_j m_j (1 - r/2H)^4_+ (1 + 2r/H), self term included; then
 // in the epilogue p = max(B((rho/rho0)^7 - 1), 0), cp = p/rho^2 (0 at rho = 0)
 // and re = rho/2.  Writes geo8 = [x, y, u, v, m, cp, re, 0.5] (the fluid
-// force-candidate rows) and rp = [rho, p].
+// force-candidate rows) and rp = [rho, p].  Fluid candidates are x, y and m of
+// the packed rows q = [x, y, u, v | m, rho, p, id] (one 32-byte sector a row,
+// of which 12 bytes are loaded), boundary candidates the rows [x, y, psi, 0].
 //
-// Bound on this card: the gathered candidate bytes (16 B a lane, read once per
-// block from device memory or L2) and ~12 FP32 operations per pair lane.  The
-// design reads each window once into shared memory for all qb queries of the
-// block, so device-memory traffic is 16 B x window per block rather than per
-// query, and the pair math runs from shared memory.
+// Bound on this card: operations.  16 FP32 operations a pair lane over
+// qb x window lanes against 32 B (fluid) or 16 B (boundary) a distinct
+// candidate row, shared by the block's qb queries; at the 100k pool 3.3 us by
+// operations against 2-3 us by bytes (chip_smoke.py reckons both from each
+// run's spans).  What the kernel actually waits for is the latency of the
+// span -> candidate -> query chain of loads and the start of ~20 machine
+// operations a lane; see "Threads" above for what the design does about it.
+template <int G, int NQB>
 __global__ void density_window_kernel(
-    const float4* __restrict__ q, const float4* __restrict__ geo,
-    const int* __restrict__ w_start, const int* __restrict__ w_len,
-    float4* __restrict__ geo8, float2* __restrict__ rp,
-    int cap, int L, float norm, float half_inv_h, float two_inv_h,
+    const float4* __restrict__ q, const float4* __restrict__ bgeo,
+    const int2* __restrict__ spans, float4* __restrict__ geo8,
+    float2* __restrict__ rp, int n_blocks, int qb, int cap, int ns,
+    int n_fluid, int n_bnd, float norm, float half_inv_h, float two_inv_h,
     float inv_rho0, float tait_b) {
-  extern __shared__ float4 s_cand[];
-  int start;
-  const int n = window(w_start, w_len, cap, L, &start);
-  for (int t = threadIdx.x; t < n; t += blockDim.x) s_cand[t] = geo[start + t];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const float4 q0 = q[2 * i];
-  float acc = 0.f;
-  for (int j = lane; j < n; j += 32) {
-    const float4 c = s_cand[j];  // x, y, m~, 0
-    const float dx = q0.x - c.x;
-    const float dy = q0.y - c.y;
-    const float r = sqrtf(dx * dx + dy * dy);
-    const float t1 = max0(1.f - half_inv_h * r);
-    const float t1sq = t1 * t1;
-    acc += (c.z * (t1sq * t1sq)) * (1.f + two_inv_h * r);
+  __shared__ float4 s_cand[NQB][CHUNK];  // x, y, m~, 0
+  __shared__ SpanTable s_tab[NQB];
+  const Place<G, NQB> at(n_blocks, qb);
+  float4 q0 = make_float4(0.f, 0.f, 0.f, 0.f), q1 = q0;
+  if (at.active) {
+    q0 = q[2 * at.i];
+    q1 = q[2 * at.i + 1];
+    load_spans(spans + (size_t)at.b * ns, ns, n_fluid, n_bnd, at.tl, at.nt,
+               s_tab[at.lb]);
   }
-  acc = warp_sum(acc);
-  if (lane == 0) {
-    const float4 q1 = q[2 * i + 1];
+  __syncthreads();
+  const SpanTable& tab = s_tab[at.lb];
+  float4* cand = s_cand[at.lb];
+  const int n = at.active ? span_lanes(tab, ns, cap) : 0;
+  float acc = 0.f;
+  // the barrier at the loop's head also says the previous chunk is consumed
+  for (int c0 = 0; __syncthreads_or(c0 < n); c0 += CHUNK) {
+    const int c1 = min(n, c0 + CHUNK);
+    int p = 0;  // lanes before span k
+    for (int k = 0; k < ns && p < c1; ++k) {
+      const int len = tab.len[k];
+      const int hi = min(p + len, c1);
+      const int row0 = tab.start[k] - p;  // lane t is source row row0 + t
+      if (2 * k < ns) {
+        for (int t = max(p, c0) + at.tl; t < hi; t += at.nt) {
+          const float4* r = q + 2 * (size_t)(row0 + t);
+          const float2 xy = *reinterpret_cast<const float2*>(r);
+          const float m = *reinterpret_cast<const float*>(r + 1);
+          cand[t - c0] = make_float4(xy.x, xy.y, m, 0.f);
+        }
+      } else {
+        for (int t = max(p, c0) + at.tl; t < hi; t += at.nt)
+          cand[t - c0] = bgeo[row0 + t];
+      }
+      p += len;
+    }
+    __syncthreads();
+    const int m = c1 - c0;  // <= 0 once this query block is done
+    for (int j = at.g; j < m; j += G) {
+      const float4 c = cand[j];
+      const float dx = q0.x - c.x;
+      const float dy = q0.y - c.y;
+      const float r = sqrtf(dx * dx + dy * dy);
+      const float t1 = max0(1.f - half_inv_h * r);
+      const float t1sq = t1 * t1;
+      acc += (c.z * (t1sq * t1sq)) * (1.f + two_inv_h * r);
+    }
+  }
+  acc = group_sum<G>(acc);
+  if (at.active && at.g == 0) {
     const float rho = norm * acc;
     const float ratio = rho * inv_rho0;
     const float rr2 = ratio * ratio;
     const float rr4 = rr2 * rr2;
     const float p = max0(tait_b * (rr4 * rr2 * ratio - 1.f));
     const float cp = rho > 0.f ? p / (rho * rho) : 0.f;
-    geo8[2 * i] = q0;
-    geo8[2 * i + 1] = make_float4(q1.x, cp, 0.5f * rho, 0.5f);
-    rp[i] = make_float2(rho, p);
+    geo8[2 * at.i] = q0;
+    geo8[2 * at.i + 1] = make_float4(q1.x, cp, 0.5f * rho, 0.5f);
+    rp[at.i] = make_float2(rho, p);
   }
 }
 
 // Replaces _forces_kernel (pi_sph_fluid_tpu/ops/pallas/window_kernels.py:317).
 //
-// Over the window's [x, y, u, v, m~, cp, re, a] rows:
+// Over the candidates' [x, y, u, v, m~, cp, re, a] rows (fluid: the rows of
+// geo8; boundary: [x, y, 0, 0, psi, 0, 0, 1]):
 //   S = sum_j m~_j (cp_i + cp_j + k (W/W(0.2H))^4 + visc) (1 - r/2H)^3_+ d
 //   visc = -alpha c H min(d.dv, 0) / ((r^2 + eps H^2)(a_j rho_i + re_j))
 // then acc = g + (5 norm / H^2) S (0 on pad queries), and the finished state
 // pk_next = [x, y, (u + half_dt au) damp, (v + half_dt av) damp, m, rho, p, id].
 // half_dt = 0, damp = 1 leaves u and v bitwise unchanged (the priming pass).
 //
-// Bound on this card: the gathered candidate bytes (32 B a lane) and ~35 FP32
-// operations, one sqrt and one division per pair lane.  As in the density
-// kernel, the window is read once per block into shared memory and shared by
-// the block's qb warps; the two viscosity divisions are fused into one.
+// Bound on this card: 39 FP32 operations (one sqrt and one division among
+// them) on a pair lane in reach and 6 (dx, dy, r^2 and the compare) on a lane
+// out of reach, whose term is 0, against 32 B a distinct candidate row;
+// chip_smoke.py counts the lanes in reach of each run's inputs and takes the
+// larger of the two times.  As in the density kernel the wait is for load
+// latency and the SM's operation rate; the same thread mapping, with the
+// staged rows split into two planes ([x, y, u, v] and [m~, cp, re, a]) so that
+// a group's two 16-byte reads a lane are each contiguous, the full arithmetic
+// only on lanes in reach (see "Lanes out of reach" above), and the two
+// viscosity divisions fused into one.
+template <int G, int NQB>
 __global__ void forces_window_kernel(
     const float4* __restrict__ q, const float4* __restrict__ geo8,
-    const float2* __restrict__ rp, const float4* __restrict__ geo,
-    const int* __restrict__ w_start, const int* __restrict__ w_len,
-    float4* __restrict__ pk_next, float2* __restrict__ acc_out,
-    int cap, int L, float gx, float gy, float half_dt, float damp,
+    const float2* __restrict__ rp, const float4* __restrict__ bgeo,
+    const int2* __restrict__ spans, float4* __restrict__ pk_next,
+    float2* __restrict__ acc_out, int n_blocks, int qb, int cap, int ns,
+    int n_fluid, int n_bnd, float gx, float gy, float half_dt, float damp,
     float half_inv_h, float two_inv_h, float eps_h2, float nach, float k_ap4,
     float gfac) {
-  extern __shared__ float4 s_cand[];  // 2 float4 per candidate
-  int start;
-  const int n = window(w_start, w_len, cap, L, &start);
-  for (int t = threadIdx.x; t < 2 * n; t += blockDim.x)
-    s_cand[t] = geo[2 * start + t];
+  __shared__ float4 s_cand[NQB][2][CHUNK];  // planes: x, y, u, v | m~, cp, re, a
+  __shared__ SpanTable s_tab[NQB];
+  const Place<G, NQB> at(n_blocks, qb);
+  float4 q0 = make_float4(0.f, 0.f, 0.f, 0.f), d1 = q0, q1 = q0;
+  float2 rho_p = make_float2(0.f, 0.f);
+  if (at.active) {
+    q0 = q[2 * at.i];         // x, y, u, v
+    d1 = geo8[2 * at.i + 1];  // m, cp, re, a
+    if (at.g == 0) {
+      q1 = q[2 * at.i + 1];   // m, rho, p, id
+      rho_p = rp[at.i];
+    }
+    load_spans(spans + (size_t)at.b * ns, ns, n_fluid, n_bnd, at.tl, at.nt,
+               s_tab[at.lb]);
+  }
   __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const float4 q0 = q[2 * i];      // x, y, u, v
-  const float4 d1 = geo8[2 * i + 1];  // m, cp, re, a
+  const SpanTable& tab = s_tab[at.lb];
+  float4* cand_a = s_cand[at.lb][0];
+  float4* cand_b = s_cand[at.lb][1];
+  const int n = at.active ? span_lanes(tab, ns, cap) : 0;
   const float q_rho = 2.f * d1.z;  // re = rho/2 is an exact halving
   const float q_press = d1.y;
+  const float cut2 = reach2(half_inv_h);
   float ax = 0.f, ay = 0.f;
-  for (int j = lane; j < n; j += 32) {
-    const float4 c0 = s_cand[2 * j];      // x, y, u, v
-    const float4 c1 = s_cand[2 * j + 1];  // m~, cp, re, a
-    const float dx = q0.x - c0.x;
-    const float dy = q0.y - c0.y;
-    const float du = q0.z - c0.z;
-    const float dv = q0.w - c0.w;
-    const float r2 = dx * dx + dy * dy;
-    const float r = sqrtf(r2);
-    const float t1 = max0(1.f - half_inv_h * r);
-    const float t1sq = t1 * t1;
-    const float t13 = t1sq * t1;
-    const float w_un = (t1sq * t1sq) * (1.f + two_inv_h * r);
-    const float press = q_press + c1.y;
-    const float w2 = w_un * w_un;
-    const float artif = k_ap4 * (w2 * w2);
-    const float xy_uv = dx * du + dy * dv;
-    const float denom = c1.w * q_rho + c1.z;
-    const float den = (r2 + eps_h2) * denom;
-    const float visc = (nach * min0(xy_uv)) / den;
-    const float coef = c1.x * (press + artif + visc) * t13;
-    ax += coef * dx;
-    ay += coef * dy;
+  for (int c0 = 0; __syncthreads_or(c0 < n); c0 += CHUNK) {
+    const int c1 = min(n, c0 + CHUNK);
+    int p = 0;
+    for (int k = 0; k < ns && p < c1; ++k) {
+      const int len = tab.len[k];
+      const int hi = min(p + len, c1);
+      // half-row t of the chunk is float4 2 * (row0 + lane) + half of src
+      const float4* src =
+          (2 * k < ns ? geo8 : bgeo) + 2 * (ptrdiff_t)(tab.start[k] - p);
+      for (int t = 2 * max(p, c0) + at.tl; t < 2 * hi; t += at.nt) {
+        const float4 v = src[t];
+        ((t & 1) ? cand_b : cand_a)[(t >> 1) - c0] = v;
+      }
+      p += len;
+    }
+    __syncthreads();
+    const int m = c1 - c0;
+    for (int j = at.g;; j += G) {
+      float4 c0v;  // x, y, u, v
+      float dx, dy, r2;
+      for (; j < m; j += G) {  // on to the thread's next lane in reach
+        c0v = cand_a[j];
+        dx = q0.x - c0v.x;
+        dy = q0.y - c0v.y;
+        r2 = dx * dx + dy * dy;
+        if (!(r2 >= cut2)) break;
+      }
+      if (j >= m) break;
+      const float4 c1v = cand_b[j];  // m~, cp, re, a
+      const float du = q0.z - c0v.z;
+      const float dv = q0.w - c0v.w;
+      const float r = sqrtf(r2);
+      const float t1 = max0(1.f - half_inv_h * r);
+      const float t1sq = t1 * t1;
+      const float t13 = t1sq * t1;
+      const float w_un = (t1sq * t1sq) * (1.f + two_inv_h * r);
+      const float press = q_press + c1v.y;
+      const float w2 = w_un * w_un;
+      const float artif = k_ap4 * (w2 * w2);
+      const float xy_uv = dx * du + dy * dv;
+      const float denom = c1v.w * q_rho + c1v.z;
+      const float den = (r2 + eps_h2) * denom;
+      const float visc = (nach * min0(xy_uv)) / den;
+      const float coef = c1v.x * (press + artif + visc) * t13;
+      ax += coef * dx;
+      ay += coef * dy;
+    }
   }
-  ax = warp_sum(ax);
-  ay = warp_sum(ay);
-  if (lane == 0) {
-    const float4 q1 = q[2 * i + 1];  // m, rho, p, id
-    const float2 rho_p = rp[i];
+  ax = group_sum<G>(ax);
+  ay = group_sum<G>(ay);
+  if (at.active && at.g == 0) {
     const bool real = q1.x > 0.f;
     const float au = real ? gx + gfac * ax : 0.f;
     const float av = real ? gy + gfac * ay : 0.f;
-    acc_out[i] = make_float2(au, av);
-    pk_next[2 * i] = make_float4(q0.x, q0.y, (q0.z + half_dt * au) * damp,
-                                 (q0.w + half_dt * av) * damp);
-    pk_next[2 * i + 1] = make_float4(q1.x, rho_p.x, rho_p.y, q1.w);
+    acc_out[at.i] = make_float2(au, av);
+    pk_next[2 * at.i] = make_float4(q0.x, q0.y, (q0.z + half_dt * au) * damp,
+                                    (q0.w + half_dt * av) * damp);
+    pk_next[2 * at.i + 1] = make_float4(q1.x, rho_p.x, rho_p.y, q1.w);
   }
 }
 
@@ -236,34 +417,47 @@ __global__ void field_window_kernel(
 
 extern "C" {
 
-int density_window(const void* q, const void* geo, const void* w_start,
-                   const void* w_len, void* geo8, void* rp, int n_blocks,
-                   int qb, int cap, int L, float norm, float half_inv_h,
+// Threads of a CUDA block of NQB query blocks of qb queries, G threads a
+// query, rounded up to whole warps; 0 if that is no launchable block.
+static int span_threads(int qb, int g, int nqb, int ns) {
+  const int t = (nqb * qb * g + 31) / 32 * 32;
+  return (qb < 1 || ns < 0 || ns > MAX_SPANS || t > 1024) ? 0 : t;
+}
+
+int density_window(const void* q, const void* bgeo, const void* spans,
+                   void* geo8, void* rp, int n_blocks, int qb, int cap, int ns,
+                   int n_fluid, int n_bnd, float norm, float half_inv_h,
                    float two_inv_h, float inv_rho0, float tait_b,
                    void* stream) {
+  constexpr int G = DENSITY_G, NQB = DENSITY_NQB;
+  const int threads = span_threads(qb, G, NQB, ns);
+  if (threads == 0) return (int)cudaErrorInvalidConfiguration;
   if (n_blocks > 0) {
-    density_window_kernel<<<n_blocks, 32 * qb, cap * sizeof(float4),
-                            (cudaStream_t)stream>>>(
-        (const float4*)q, (const float4*)geo, (const int*)w_start,
-        (const int*)w_len, (float4*)geo8, (float2*)rp, cap, L, norm,
-        half_inv_h, two_inv_h, inv_rho0, tait_b);
+    density_window_kernel<G, NQB><<<(n_blocks + NQB - 1) / NQB, threads, 0,
+                                    (cudaStream_t)stream>>>(
+        (const float4*)q, (const float4*)bgeo, (const int2*)spans,
+        (float4*)geo8, (float2*)rp, n_blocks, qb, cap, ns, n_fluid, n_bnd,
+        norm, half_inv_h, two_inv_h, inv_rho0, tait_b);
   }
   return (int)cudaGetLastError();
 }
 
 int forces_window(const void* q, const void* geo8, const void* rp,
-                  const void* geo, const void* w_start, const void* w_len,
-                  void* pk_next, void* acc, int n_blocks, int qb, int cap,
-                  int L, float gx, float gy, float half_dt, float damp,
-                  float half_inv_h, float two_inv_h, float eps_h2, float nach,
-                  float k_ap4, float gfac, void* stream) {
+                  const void* bgeo, const void* spans, void* pk_next,
+                  void* acc, int n_blocks, int qb, int cap, int ns,
+                  int n_fluid, int n_bnd, float gx, float gy, float half_dt,
+                  float damp, float half_inv_h, float two_inv_h, float eps_h2,
+                  float nach, float k_ap4, float gfac, void* stream) {
+  constexpr int G = FORCES_G, NQB = FORCES_NQB;
+  const int threads = span_threads(qb, G, NQB, ns);
+  if (threads == 0) return (int)cudaErrorInvalidConfiguration;
   if (n_blocks > 0) {
-    forces_window_kernel<<<n_blocks, 32 * qb, 2 * cap * sizeof(float4),
-                           (cudaStream_t)stream>>>(
+    forces_window_kernel<G, NQB><<<(n_blocks + NQB - 1) / NQB, threads, 0,
+                                   (cudaStream_t)stream>>>(
         (const float4*)q, (const float4*)geo8, (const float2*)rp,
-        (const float4*)geo, (const int*)w_start, (const int*)w_len,
-        (float4*)pk_next, (float2*)acc, cap, L, gx, gy, half_dt, damp,
-        half_inv_h, two_inv_h, eps_h2, nach, k_ap4, gfac);
+        (const float4*)bgeo, (const int2*)spans, (float4*)pk_next,
+        (float2*)acc, n_blocks, qb, cap, ns, n_fluid, n_bnd, gx, gy, half_dt,
+        damp, half_inv_h, two_inv_h, eps_h2, nach, k_ap4, gfac);
   }
   return (int)cudaGetLastError();
 }

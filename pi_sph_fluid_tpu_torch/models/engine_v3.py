@@ -3,10 +3,16 @@
 
 One tick is the reference's leapfrog (`pi_sph_fluid.c:614-644`):
 
-    kick-drift -> relayout (sort + row-triple frame + block windows)
-    -> slim (L, 4) candidate gather -> density kernel (+ Tait EOS)
-    -> full (L, 8) candidate gather -> forces kernel (+ trailing half-kick)
-    -> on-device stats
+    kick-drift -> relayout (sort + row-triple frame + block windows and
+    the per-block span table) -> density kernel (+ Tait EOS)
+    -> forces kernel (+ trailing half-kick) -> on-device stats
+
+Neither kernel is fed by a gather: each block reads its candidates through
+its spans (ops/window/triple.py::block_spans), the density kernel from the
+packed state and the static boundary rows [x, y, psi, 0], the forces
+kernel from the density kernel's geo8 output and the static boundary rows
+[x, y, 0, 0, psi, 0, 0, 1].  Under a sticky layout the spans are the
+relayout's and the rows are the tick's.
 
 State layout: (n_layout, 8) float32 [x, y, u, v, m, rho, p, id], where the
 particle id travels as a float *value* in column 7 (exact below 2^24), so
@@ -28,7 +34,7 @@ import torch
 from ..config import SPHConfig
 from ..core.kernels import div_scalar
 from ..ops.grid import GridContext, cell_ids, csr_starts
-from ..ops.window.triple import (INERT_X, TripleCtx, TripleSpec,
+from ..ops.window.triple import (INERT_X, TripleCtx, TripleSpec, block_spans,
                                  block_windows, build_frame, triple_spec)
 from ..ops.window.window_kernels import density_window, forces_window
 from ..state import BoundaryState, FluidState
@@ -74,16 +80,12 @@ class WindowEngine:
         self.b_cell_starts = boundary_grid.cell_starts.to(dev, _I32)
         b = self.boundary
         zb = torch.zeros_like(b.x)
-        # static gather-source rows (`engine_v3.py:102-118`): force
+        # static boundary candidate rows (`engine_v3.py:102-118`): force
         # candidates [x, y, 0, 0, psi, cp=0, re=0, a=1] (fluid-only pressure
-        # and viscosity denominator, `pi_sph_fluid.c:350,362`), density
-        # candidates [x, y, psi, 0], each followed by the inert row
-        inert = torch.tensor([[INERT_X, INERT_X, 0, 0, 0, 0, 0, 1.0]],
-                             dtype=torch.float32, device=dev)
-        self._tail_f = torch.cat(
-            [torch.stack([b.x, b.y, zb, zb, b.m, zb, zb, zb + 1.0], 1), inert])
-        self._tail_d = torch.cat(
-            [torch.stack([b.x, b.y, b.m, zb], 1), inert[:, [0, 1, 2, 3]]])
+        # and viscosity denominator, `pi_sph_fluid.c:350,362`) and density
+        # candidates [x, y, psi, 0], in the boundary's cell-sorted order
+        self._b_geo_f = torch.stack([b.x, b.y, zb, zb, b.m, zb, zb, zb + 1.0], 1)
+        self._b_geo_d = torch.stack([b.x, b.y, b.m, zb], 1)
         self._inert_row = torch.tensor([_INERT_ROW], dtype=torch.float32,
                                        device=dev)
         self.dt = float(np.float32(cfg.dt))
@@ -103,17 +105,19 @@ class WindowEngine:
                            torch.full_like(m, cfg.n_cells, dtype=_I32))
         order = torch.argsort(keys, stable=True)
         cell_starts = csr_starts(keys, cfg.n_cells + 2)
-        layout_src, trip_src, T = build_frame(spec, cfg, cell_starts,
-                                              self.b_cell_starts)
+        layout_src, trip_src, T, row_shift = build_frame(
+            spec, cfg, cell_starts, self.b_cell_starts)
         packed_sorted = torch.cat([packed[order], self._inert_row])
         packed_new = packed_sorted[layout_src.long()]
         live = packed_new[:, 4] > 0
         cells = torch.where(live, cell_ids(packed_new[:, 0], packed_new[:, 1], cfg),
                             torch.full_like(live, cfg.n_cells, dtype=_I32))
         w_start, w_len, flen, overflow = block_windows(spec, cfg, cells, T)
+        spans = block_spans(spec, cfg, cells, cell_starts, self.b_cell_starts,
+                            row_shift)
         ctx = TripleCtx(layout_src=layout_src, trip_src=trip_src,
                         w_start=w_start, w_len=w_len, flen=flen, T=T,
-                        overflow=overflow)
+                        overflow=overflow, spans=spans)
         return packed_new, ctx, overflow
 
     def _pair_passes(self, packed, ctx: TripleCtx, g,
@@ -122,14 +126,9 @@ class WindowEngine:
         (`engine_v3.py:221-261`).  Returns (pk_next, au, av); the defaults
         leave u, v unchanged, which is the priming pass."""
         cfg, spec = self.cfg, self.spec
-        trip = ctx.trip_src.long()
-        geo_d_src = torch.cat([packed[:, [0, 1, 4]],
-                               torch.zeros_like(packed[:, :1])], 1)
-        geo_d = torch.cat([geo_d_src, self._tail_d]).index_select(0, trip)
-        geo8, rp = density_window(packed, geo_d, ctx.w_start, ctx.flen, cfg, spec)
-        geo_f = torch.cat([geo8, self._tail_f]).index_select(0, trip)
-        pk_next, acc = forces_window(packed, geo8, rp, geo_f, ctx.w_start,
-                                     ctx.flen, g, cfg, spec, half_dt, damp)
+        geo8, rp = density_window(packed, self._b_geo_d, ctx.spans, cfg, spec)
+        pk_next, acc = forces_window(packed, geo8, rp, self._b_geo_f, ctx.spans,
+                                     g, cfg, spec, half_dt, damp)
         return pk_next, acc[:, 0], acc[:, 1]
 
     # ------------------------------------------------------------------

@@ -29,8 +29,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library name -> (source, {entry point: argtypes})
 SOURCES = {
     "window_kernels": (_PKG / "csrc" / "window_kernels.cu", {
-        "density_window": [_P] * 6 + [_I] * 4 + [_F] * 5 + [_P],
-        "forces_window": [_P] * 8 + [_I] * 4 + [_F] * 10 + [_P],
+        "density_window": [_P] * 5 + [_I] * 6 + [_F] * 5 + [_P],
+        "forces_window": [_P] * 7 + [_I] * 6 + [_F] * 10 + [_P],
         "field_window": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
     }),
     "probe_kernels": (_PKG / "csrc" / "probe_kernels.cu", {

@@ -17,6 +17,16 @@ Only the exact-start fetch (the JAX ``planes == 1`` branch,
 start, so ``flen == w_len``.  The dual 64-shifted planes and the banded
 gather are TPU workarounds and stay behind.
 
+The physics kernels do not read the gathered candidate array at all.  The
+sort is row-major and the query layout keeps every grid row contiguous and
+column-sorted, so the lanes of a block's window are, grid row by grid row
+of its segment, one contiguous run of layout-order fluid rows and one
+contiguous run of the static boundary rows: ``block_spans`` returns these
+``2 * (seg_q + 2)`` [start, len] spans per block, the same lanes as the
+window in row-major instead of column-major order, and the kernels read
+them straight from the state.  ``trip_src`` (the gather map of the (L, k)
+candidate array) is still built for the renderer's frame.
+
 Every index the JAX code let XLA clamp is in range by construction here
 (noted at each gather), and the two ``.at[].max(mode="drop")`` scatters
 filter their indices to the valid range before ``scatter_reduce_``.
@@ -24,6 +34,7 @@ filter their indices to the valid range before ``scatter_reduce_``.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -31,7 +42,7 @@ import torch
 from ...config import SPHConfig
 
 __all__ = ["TripleSpec", "TripleCtx", "triple_spec", "build_frame",
-           "block_windows", "INERT_X", "LANE"]
+           "block_windows", "block_spans", "INERT_X", "LANE"]
 
 LANE = 128      # segment strides round to this, as in the JAX layout
 INERT_X = -1e6  # inert slots sit far outside the domain -> q >= 2 kills them
@@ -63,6 +74,12 @@ class TripleSpec(NamedTuple):
     def n_tiles(self) -> int:
         return self.n_layout // self.tq
 
+    @property
+    def n_spans(self) -> int:
+        """Spans per block: a fluid and a boundary run for each grid row of
+        a segment (seg_q query rows and one row of cover on either side)."""
+        return 2 * (self.seg_q + 2)
+
 
 class TripleCtx(NamedTuple):
     """Per-relayout context (`triple.py:117-145`, unbanded).
@@ -76,6 +93,10 @@ class TripleCtx(NamedTuple):
     T:          (n_cells+1, 8) int32 per-cell window table [wlo, whi, ...];
                 T[n_cells, 2] carries the L-budget excess
     overflow:   () int32 window lanes beyond cap (+ x1e6 budget overrun)
+    spans:      (n_tiles * nqb, n_spans, 2) int32 per-block [start, len]: the
+                window's lanes as contiguous runs, first one per segment row
+                of layout-order fluid rows, then one per segment row of
+                boundary rows; sum(len) == w_len
     """
 
     layout_src: torch.Tensor
@@ -85,6 +106,7 @@ class TripleCtx(NamedTuple):
     flen: torch.Tensor
     T: torch.Tensor
     overflow: torch.Tensor
+    spans: torch.Tensor
 
 
 def triple_spec(cfg: SPHConfig, n_real: int, nb: int, tq: int = 256,
@@ -121,12 +143,14 @@ def build_frame(spec: TripleSpec, cfg: SPHConfig, cell_starts: torch.Tensor,
     """Query layout and candidate construction from the CSRs alone
     (`triple.py:261-379`).  ``cell_starts`` (n_cells+2,) is the fluid CSR
     over sorted slots, ``b_cell_starts`` (n_cells+1,) the static boundary
-    CSR.  Returns (layout_src, trip_src, T)."""
+    CSR.  Returns (layout_src, trip_src, T, row_shift); ``row_shift``
+    (n_rows,) int32 is, per grid row, the layout slot less the sorted slot
+    of the row's first particle, which ``block_spans`` needs."""
     dev = cell_starts.device
     m = cfg.n_cell_cols
     n_rows = cfg.n_cell_rows
     n_cells = cfg.n_cells
-    qb, cap, seg_q = spec.qb, spec.cap, spec.seg_q
+    cap, seg_q = spec.cap, spec.seg_q
     n_seg = -(-n_rows // seg_q)
     cover = seg_q + 2
     ar = lambda n: torch.arange(n, dtype=_I32, device=dev)  # noqa: E731
@@ -139,8 +163,9 @@ def build_frame(spec: TripleSpec, cfg: SPHConfig, cell_starts: torch.Tensor,
     row_start_sorted = cell_starts[:n_cells:m]              # cell_starts[r*m]
 
     # ---- query layout: per-row capacity rounded up to qb -------------------
-    rowcap = _round_up(row_count, qb)
+    rowcap = _round_up(row_count, spec.qb)
     rstart = torch.cat([torch.zeros(1, dtype=_I32, device=dev), _cumsum(rowcap, 0)])
+    row_shift = rstart[:n_rows] - row_start_sorted
     # trailing empty rows start at n_layout: dropped, not clamped
     row_of = _scatter_max_cummax(spec.n_layout, rstart[:n_rows], ar(n_rows)).long()
     k_row = ar(spec.n_layout) - rstart[row_of]              # row_of < n_rows
@@ -186,7 +211,7 @@ def build_frame(spec: TripleSpec, cfg: SPHConfig, cell_starts: torch.Tensor,
     lens3 = torch.where(rt2_ok[:, :, None],
                         torch.where(is_b2, bcnt[rt2_c], fcnt[rt2_c]),
                         torch.zeros((), dtype=_I32, device=dev))
-    src0_f3 = (rstart[:n_rows][rt2_c] - row_start_sorted[rt2_c])[:, :, None] + cs_grid[rt2_c]
+    src0_f3 = row_shift[rt2_c][:, :, None] + cs_grid[rt2_c]
     src0_b3 = spec.n_layout + bcs_grid[rt2_c]
     src03 = torch.where(is_b2, src0_b3, src0_f3)
     lens = lens3.transpose(1, 2)                            # (n_seg, m, cover*2)
@@ -202,7 +227,18 @@ def build_frame(spec: TripleSpec, cfg: SPHConfig, cell_starts: torch.Tensor,
 
     run_of = _scatter_max_cummax(spec.L, slot0, ar(spec.n_runs)).long()
     trip_src = torch.clamp_max(ar(spec.L) + delta[run_of], spec.n_src - 1)
-    return layout_src, trip_src, T
+    return layout_src, trip_src, T, row_shift
+
+
+def _block_cells(spec: TripleSpec, cfg: SPHConfig, cells: torch.Tensor):
+    """(c_first, c_last, has_q) per block of qb layout queries: its first
+    and its last valid cell id (a block lies in one grid row and its valid
+    queries come first), and whether it holds any query at all."""
+    cells_b = cells.reshape(spec.n_tiles * spec.nqb, spec.qb)
+    valid_b = cells_b < cfg.n_cells
+    c_first = cells_b[:, 0]
+    c_last = torch.amax(torch.where(valid_b, cells_b, torch.full_like(cells_b, -1)), 1)
+    return c_first, c_last, c_last >= 0
 
 
 def block_windows(spec: TripleSpec, cfg: SPHConfig, cells: torch.Tensor,
@@ -211,11 +247,7 @@ def block_windows(spec: TripleSpec, cfg: SPHConfig, cells: torch.Tensor,
     (`triple.py:382-428`, exact-start branch).  Returns (w_start, w_len,
     flen, overflow)."""
     n_cells = cfg.n_cells
-    cells_b = cells.reshape(spec.n_tiles * spec.nqb, spec.qb)
-    valid_b = cells_b < n_cells
-    c_first = cells_b[:, 0]
-    c_last = torch.amax(torch.where(valid_b, cells_b, torch.full_like(cells_b, -1)), 1)
-    has_q = c_last >= 0
+    c_first, c_last, has_q = _block_cells(spec, cfg, cells)
     none = torch.full_like(c_first, n_cells)
     T_lo = T[torch.where(has_q, c_first, none).long()]      # cells <= n_cells
     T_hi = T[torch.where(has_q, c_last, none).long()]
@@ -230,3 +262,68 @@ def block_windows(spec: TripleSpec, cfg: SPHConfig, cells: torch.Tensor,
     shape = (spec.n_tiles, spec.nqb)
     return (w_start.reshape(shape), w_len.reshape(shape), flen.reshape(shape),
             overflow)
+
+
+@functools.lru_cache(maxsize=8)
+def _span_tables(cfg: SPHConfig, seg_q: int, device: torch.device):
+    """Static per-cell tables of ``block_spans`` for a block whose first
+    valid query lies in cell c (row r = c // m) and whose last in cell c':
+    ``i_lo[c]`` / ``i_hi[c']`` (n_cells + 1, cover) index, for each grid row
+    rr of r's segment, the entries (rr, c_lo) and (rr, c_hi + 1) of an
+    (n_rows, m + 1) per-row CSR grid, c_lo = max(col - 1, 0), c_hi + 1 =
+    min(col' + 2, m); ``ok[c]`` (n_cells + 1, 2 * cover) is 1 where rr is a
+    row of the segment.  Entry n_cells (a block without queries) is all 0."""
+    m, n_rows, n_cells = cfg.n_cell_cols, cfg.n_cell_rows, cfg.n_cells
+    cover = seg_q + 2
+    c = torch.arange(n_cells, dtype=_I32, device=device)
+    row, col = c // m, c % m
+    base = row // seg_q * seg_q
+    rr = torch.clamp_min(base - 1, 0)[:, None] + torch.arange(
+        cover, dtype=_I32, device=device)[None, :]
+    ok = (rr <= torch.clamp_max(base + seg_q, n_rows - 1)[:, None]).to(_I32)
+    at = torch.clamp_max(rr, n_rows - 1) * (m + 1)
+    i_lo = at + torch.clamp_min(col - 1, 0)[:, None]
+    i_hi = at + torch.clamp_max(col + 2, m)[:, None]
+    pad = lambda t: torch.cat([t, torch.zeros_like(t[:1])])  # noqa: E731
+    return pad(i_lo), pad(i_hi), pad(torch.cat([ok, ok], 1))
+
+
+def block_spans(spec: TripleSpec, cfg: SPHConfig, cells: torch.Tensor,
+                cell_starts: torch.Tensor, b_cell_starts: torch.Tensor,
+                row_shift: torch.Tensor):
+    """Per-block span table (n_tiles * nqb, n_spans, 2) int32 [start, len]:
+    the lanes of the block's window (``block_windows``) as contiguous runs
+    of the arrays they come from, so that no candidate array has to be
+    gathered.  ``row_shift`` is ``build_frame``'s.
+
+    The window is the segment's columns [c_lo, c_hi] = [c_first - 1,
+    c_last + 1] (clamped to the grid) over every grid row rr of the block's
+    segment.  In the query layout grid row rr is contiguous and
+    column-sorted, fluid cell (rr, c) starting at layout row
+    ``f(rr, c) = row_shift[rr] + cell_starts[rr*m + c]``, and the boundary is
+    sorted by cell, so per segment row the lanes are
+
+    * spans [0, cover):        layout rows [f(rr, c_lo), f(rr, c_hi + 1)),
+    * spans [cover, 2*cover):  boundary rows
+                               [b_cell_starts[rr*m + c_lo],
+                                b_cell_starts[rr*m + c_hi + 1]),
+
+    with cover = seg_q + 2; rows past the segment's last, and every span of
+    a block without queries, have length 0.  The lengths sum to ``w_len``
+    and the rows are those of ``trip_src[w_start : w_start + w_len]``, in
+    row-major instead of column-major order."""
+    m, n_rows, n_cells = cfg.n_cell_cols, cfg.n_cell_rows, cfg.n_cells
+    i_lo, i_hi, ok = _span_tables(cfg, spec.seg_q, cells.device)
+    c_first, c_last, has_q = _block_cells(spec, cfg, cells)
+    none = torch.full_like(c_first, n_cells)
+    first = torch.where(has_q, c_first, none)
+    i_lo, ok = i_lo[first], ok[first]                       # (blocks, cover)
+    i_hi = i_hi[torch.where(has_q, c_last, none)]
+    # (n_rows, m + 1) views of the CSRs: entry (r, c) is the start of cell
+    # (r, c), entry (r, m) the end of row r; both CSRs reach index n_cells
+    grid = lambda t: t.as_strided((n_rows, m + 1), (m, 1))  # noqa: E731
+    f = (row_shift[:, None] + grid(cell_starts)).reshape(-1)
+    b = grid(b_cell_starts).reshape(-1)
+    start = torch.cat([f[i_lo], b[i_lo]], 1)
+    end = torch.cat([f[i_hi], b[i_hi]], 1)
+    return torch.stack([start, (end - start) * ok], 2)

@@ -2,32 +2,49 @@
 (port of `pi_sph_fluid_tpu/ops/pallas/window_kernels.py:192-497`).
 
 Each pass works per block of ``qb`` consecutive layout queries over the
-block's one contiguous candidate window (ops/window/triple.py):
+lanes of the block's candidate window, read as the block's spans
+(ops/window/triple.py::block_spans) straight from the arrays the
+candidates live in; no candidate array is gathered:
 
 * ``density_window``: Wendland density with the self term, then the Tait
-  EOS epilogue; returns geo8 = [x, y, u, v, m, p/rho^2, rho/2, 0.5] (the
-  fluid force-candidate rows) and rp = [rho, p]  (`pi_sph_fluid.c:263-301`);
+  EOS epilogue; fluid candidates are the rows of the packed state itself
+  (x, y and m of [x, y, u, v | m, rho, p, id]), boundary candidates the
+  static rows [x, y, psi, 0]; returns geo8 = [x, y, u, v, m, p/rho^2,
+  rho/2, 0.5] (the fluid force-candidate rows) and rp = [rho, p]
+  (`pi_sph_fluid.c:263-301`);
 * ``forces_window``: symmetric pressure + Macklin artificial pressure +
   Monaghan viscosity + gravity, with the trailing half-kick fused in;
-  returns pk_next (the finished packed state) and acc = [au, av]
-  (`pi_sph_fluid.c:303-373`, `:637-640`).
+  fluid candidates are the rows of geo8, boundary candidates the static
+  rows [x, y, 0, 0, psi, 0, 0, 1]; returns pk_next (the finished packed
+  state) and acc = [au, av]  (`pi_sph_fluid.c:303-373`, `:637-640`).
 
-Candidates are row-major, (L, 4) [x, y, m~, 0] for density and (L, 8)
-[x, y, u, v, m~, cp, re, a] for forces (the TPU kernels' (k, L) planes
-transposed), so a candidate is one or two 16-byte loads.
+Both compute the first ``min(sum of span lengths, cap)`` lanes in span
+order.  Under a sticky layout the spans are the relayout's and the rows
+they name are read from the current state.  The forces kernel does a
+lane's full arithmetic only where the candidate is within the support
+radius (widened by 1e-4; a non-finite distance counts as within);
+elsewhere the lane's term is exactly 0, which is what the plain version
+adds there for finite rows.  A non-finite cp, re, u or v of a row out of a
+query's reach therefore does not poison that query in the kernel, where
+the plain version and the TPU kernel compute NaN * 0; a non-finite
+position poisons in both.
 
 Dispatch: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the hand-written kernel (csrc/window_kernels.cu) or raises.  Each
-wrapper's ``launches`` counts kernel launches and nothing else.
+wrapper's ``launches`` counts kernel launches and nothing else.  The
+float32 constants of a pass are computed once per config, and a launch
+spends its host time on the checks, two allocations and the call.
 
-The plain versions compute the same lanes as the kernels, [w_start,
-w_start + min(w_len, cap)), over an explicit (blocks, qb, cap) window, in
-chunks of blocks so that they also run at 1M particles on the card.  Lanes
-past w_len, which the TPU kernels computed, contribute exactly 0 there (or
-below 1e-28 where rounding leaves the support clamp one ulp above 0).
+The plain versions compute the same lanes as the kernels over an explicit
+(blocks, qb, lanes) array, in chunks of blocks so that they also run at 1M
+particles on the card.  Lanes past the window, which the TPU kernels
+computed, contribute exactly 0 there (or below 1e-28 where rounding leaves
+the support clamp one ulp above 0).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -42,11 +59,15 @@ __all__ = ["density_window", "forces_window", "density_window_plain",
 _F32 = np.float32
 # lanes materialised at once by the plain versions (x ~10 temporaries)
 _PLAIN_LANES = 1 << 22
+# most spans a block may have (the kernels keep the table in shared memory)
+MAX_SPANS = 16
 
 
+@functools.lru_cache(maxsize=None)
 def density_consts(cfg: SPHConfig) -> dict:
     """Float32 constants of the density pass, rounded as
-    `window_kernels.py:211-215` rounds them."""
+    `window_kernels.py:211-215` rounds them.  Computed once per config
+    (SPHConfig is frozen); callers must not modify the dict."""
     h = _F32(cfg.h)
     return dict(norm=float(_F32(cfg.kernel_norm)),
                 half_inv_h=float(_F32(0.5) / h),
@@ -55,8 +76,10 @@ def density_consts(cfg: SPHConfig) -> dict:
                 tait_b=float(_F32(cfg.tait_b)))
 
 
+@functools.lru_cache(maxsize=None)
 def forces_consts(cfg: SPHConfig) -> dict:
-    """Float32 constants of the forces pass (`window_kernels.py:354-364`)."""
+    """Float32 constants of the forces pass (`window_kernels.py:354-364`),
+    computed once per config like ``density_consts``."""
     h = _F32(cfg.h)
     wref = _F32(float(artificial_pressure_ref_w(cfg)) / float(cfg.kernel_norm))
     inv = _F32(1.0) / wref
@@ -69,17 +92,24 @@ def forces_consts(cfg: SPHConfig) -> dict:
                 gfac=float(_F32(5.0) * _F32(cfg.kernel_norm) / (h * h)))
 
 
+@functools.lru_cache(maxsize=None)
+def _const_args(consts, cfg: SPHConfig) -> tuple:
+    """The constants of ``consts(cfg)`` in the kernel's argument order."""
+    return tuple(consts(cfg).values())
+
+
 def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, expected "
-                         f"{dtype} {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    """Device, type, shape and contiguity of one kernel argument."""
+    if (t.shape != shape or t.dtype != dtype or t.device != device
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}"
+                         f"{'' if t.is_contiguous() else ', not contiguous'}; "
+                         f"expected contiguous {dtype} {tuple(shape)} on {device}")
 
 
 def _check_windows(spec: TripleSpec, q_packed, geo, k, w_start, w_len):
+    """The arguments of a kernel that reads one contiguous window per block
+    of a gathered (L, k) candidate array (the renderer's field kernel)."""
     dev = q_packed.device
     _check("q_packed", q_packed, (spec.n_layout, 8), torch.float32, dev)
     if geo.dim() != 2 or geo.shape[1] != k:
@@ -91,9 +121,25 @@ def _check_windows(spec: TripleSpec, q_packed, geo, k, w_start, w_len):
         raise ValueError(f"qb={spec.qb}: one warp per query needs 1 <= qb <= 32")
 
 
+def _check_spans(spec: TripleSpec, q_packed, b_geo, k, spans):
+    """The arguments both span kernels share.  Returns the device."""
+    dev = q_packed.device
+    _check("q_packed", q_packed, (spec.n_layout, 8), torch.float32, dev)
+    if b_geo.dim() != 2:
+        raise ValueError(f"boundary rows must be (nb, {k}), got {tuple(b_geo.shape)}")
+    _check("boundary rows", b_geo, (b_geo.shape[0], k), torch.float32, dev)
+    _check("spans", spans, (spec.n_layout // spec.qb, spec.n_spans, 2),
+           torch.int32, dev)
+    if not (1 <= spec.qb <= 32 and spec.n_spans <= MAX_SPANS):
+        raise ValueError(f"qb={spec.qb} must be 1..32 and n_spans="
+                         f"{spec.n_spans} at most {MAX_SPANS}")
+    return dev
+
+
 def _windows(w_start, w_len, b0, b1, cap, L):
     """(nb, <= cap) candidate rows and lane validity for blocks [b0, b1): the
-    kernels' clamped window [start, start + min(len, cap)) within [0, L)."""
+    field kernel's clamped window [start, start + min(len, cap)) within
+    [0, L)."""
     ws = w_start.reshape(-1)[b0:b1].clamp(0, L)
     wl = torch.clamp_max(torch.minimum(w_len.reshape(-1)[b0:b1].clamp_min(0),
                                        L - ws), cap)
@@ -105,6 +151,30 @@ def _windows(w_start, w_len, b0, b1, cap, L):
     return idx, valid
 
 
+def _span_lanes(spans, b0, b1, cap, n_fluid, n_bnd):
+    """(nb, <= cap) candidate rows and lane validity for blocks [b0, b1) in
+    span order, as rows of ``cat([fluid rows, boundary rows])``.  The first
+    half of a block's spans names fluid rows, the second boundary rows;
+    each is clamped into its array as the kernels clamp it, and a block
+    computes its first min(sum of lengths, cap) lanes."""
+    sp = spans[b0:b1].long()
+    nb, ns = sp.shape[0], sp.shape[1]
+    fluid = torch.arange(ns, device=sp.device) < ns // 2
+    n_src = torch.where(fluid, n_fluid, n_bnd)
+    start = torch.minimum(sp[..., 0].clamp_min(0), n_src)
+    length = torch.minimum(sp[..., 1].clamp_min(0), n_src - start)
+    pref = torch.cumsum(length, 1)                          # inclusive
+    total = pref[:, -1].clamp_max(cap)
+    # lanes past the chunk's longest window are all invalid: skip them
+    width = max(int(total.max()), 1)
+    lane = torch.arange(width, device=sp.device)[None, :].expand(nb, width)
+    k = torch.searchsorted(pref, lane.contiguous(), right=True).clamp_max(ns - 1)
+    row0 = start + torch.where(fluid, 0, n_fluid) - (pref - length)
+    valid = lane < total[:, None]
+    idx = torch.where(valid, row0.gather(1, k) + lane, 0)
+    return idx, valid
+
+
 def _chunk(spec: TripleSpec) -> int:
     return max(1, _PLAIN_LANES // (spec.qb * spec.cap))
 
@@ -113,23 +183,41 @@ def _zero(t):
     return torch.zeros((), dtype=t.dtype, device=t.device)
 
 
+_ENTRIES: dict = {}     # entry point name -> bound ctypes function
+
+
+def _launch(name: str, dev, lib: str = "window_kernels"):
+    """Entry point ``name`` of the kernel library ``lib`` (built and looked
+    up at its first launch) and the raw handle of the current stream of the
+    CUDA device ``dev``: one dictionary lookup and one call per launch."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        from ._build import library
+
+        fn = _ENTRIES[name] = getattr(library(lib)[0], name)
+    return fn, torch._C._cuda_getCurrentRawStream(dev.index)
+
+
 # ---------------------------------------------------------------------------
 # density
 # ---------------------------------------------------------------------------
 
 
-def density_window_plain(q_packed, geo_d, w_start, w_len, cfg: SPHConfig,
+def density_window_plain(q_packed, b_geo_d, spans, cfg: SPHConfig,
                          spec: TripleSpec):
     """Plain PyTorch version of the density kernel, same lanes, same
     per-lane and epilogue operation order."""
     c = density_consts(cfg)
-    n_blocks, qb, L = spec.n_layout // spec.qb, spec.qb, geo_d.shape[0]
+    n_blocks, qb = spec.n_layout // spec.qb, spec.qb
+    src = torch.cat([torch.cat([q_packed[:, 0:2], q_packed[:, 4:5]], 1),
+                     b_geo_d[:, 0:3]])                      # x, y, m~
     rho = torch.empty(spec.n_layout, dtype=torch.float32, device=q_packed.device)
     step = _chunk(spec)
     for b0 in range(0, n_blocks, step):
         b1 = min(b0 + step, n_blocks)
-        idx, valid = _windows(w_start, w_len, b0, b1, spec.cap, L)
-        cand = geo_d[idx]                                   # (nb, cap, 4)
+        idx, valid = _span_lanes(spans, b0, b1, spec.cap, spec.n_layout,
+                                 b_geo_d.shape[0])
+        cand = src[idx]                                     # (nb, lanes, 3)
         q = q_packed[b0 * qb:b1 * qb].reshape(b1 - b0, qb, 8)
         dx = q[:, :, 0:1] - cand[:, None, :, 0]
         dy = q[:, :, 1:2] - cand[:, None, :, 1]
@@ -151,28 +239,23 @@ def density_window_plain(q_packed, geo_d, w_start, w_len, cfg: SPHConfig,
     return geo8, torch.stack([rho, p], 1)
 
 
-def density_window(q_packed, geo_d, w_start, w_len, cfg: SPHConfig,
-                   spec: TripleSpec):
-    """(geo8 (n_layout, 8), rp (n_layout, 2)) from the (L, 4) density
-    candidates; the kernel on CUDA tensors, the plain version on CPU ones."""
-    _check_windows(spec, q_packed, geo_d, 4, w_start, w_len)
-    if q_packed.device.type == "cpu":
-        return density_window_plain(q_packed, geo_d, w_start, w_len, cfg, spec)
-    if q_packed.device.type != "cuda":
-        raise ValueError(f"no window kernel for device {q_packed.device}")
-    from ._build import library
-
-    lib, _ = library()
+def density_window(q_packed, b_geo_d, spans, cfg: SPHConfig, spec: TripleSpec):
+    """(geo8 (n_layout, 8), rp (n_layout, 2)) from the packed state (queries
+    and fluid candidates), the (nb, 4) boundary rows [x, y, psi, 0] and the
+    per-block span table; the kernel on CUDA tensors, the plain version on
+    CPU ones."""
+    dev = _check_spans(spec, q_packed, b_geo_d, 4, spans)
+    if dev.type == "cpu":
+        return density_window_plain(q_packed, b_geo_d, spans, cfg, spec)
+    if dev.type != "cuda":
+        raise ValueError(f"no window kernel for device {dev}")
+    fn, stream = _launch("density_window", dev)
     geo8 = torch.empty_like(q_packed)
-    rp = torch.empty((spec.n_layout, 2), dtype=torch.float32,
-                     device=q_packed.device)
-    c = density_consts(cfg)
-    err = lib.density_window(
-        q_packed.data_ptr(), geo_d.data_ptr(), w_start.data_ptr(),
-        w_len.data_ptr(), geo8.data_ptr(), rp.data_ptr(),
-        spec.n_layout // spec.qb, spec.qb, spec.cap, geo_d.shape[0],
-        c["norm"], c["half_inv_h"], c["two_inv_h"], c["inv_rho0"],
-        c["tait_b"], torch.cuda.current_stream(q_packed.device).cuda_stream)
+    rp = torch.empty((spec.n_layout, 2), dtype=torch.float32, device=dev)
+    err = fn(q_packed.data_ptr(), b_geo_d.data_ptr(), spans.data_ptr(),
+             geo8.data_ptr(), rp.data_ptr(), spec.n_layout // spec.qb, spec.qb,
+             spec.cap, spec.n_spans, spec.n_layout, b_geo_d.shape[0],
+             *_const_args(density_consts, cfg), stream)
     if err:
         raise RuntimeError(f"density_window kernel launch failed: CUDA error {err}")
     density_window.launches += 1
@@ -187,13 +270,14 @@ density_window.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def forces_window_plain(q_packed, geo8, rp, geo_f, w_start, w_len, g,
+def forces_window_plain(q_packed, geo8, rp, b_geo_f, spans, g,
                         cfg: SPHConfig, spec: TripleSpec,
                         half_dt: float = 0.0, damp: float = 1.0):
     """Plain PyTorch version of the forces kernel, same lanes, same
     per-lane and epilogue operation order."""
     c = forces_consts(cfg)
-    n_blocks, qb, L = spec.n_layout // spec.qb, spec.qb, geo_f.shape[0]
+    n_blocks, qb = spec.n_layout // spec.qb, spec.qb
+    src = torch.cat([geo8, b_geo_f])
     sums = torch.empty((spec.n_layout, 2), dtype=torch.float32,
                        device=q_packed.device)
     q_rho_all = 2.0 * geo8[:, 6]
@@ -201,8 +285,9 @@ def forces_window_plain(q_packed, geo8, rp, geo_f, w_start, w_len, g,
     step = _chunk(spec)
     for b0 in range(0, n_blocks, step):
         b1 = min(b0 + step, n_blocks)
-        idx, valid = _windows(w_start, w_len, b0, b1, spec.cap, L)
-        cand = geo_f[idx][:, None]                          # (nb, 1, cap, 8)
+        idx, valid = _span_lanes(spans, b0, b1, spec.cap, spec.n_layout,
+                                 b_geo_f.shape[0])
+        cand = src[idx][:, None]                            # (nb, 1, lanes, 8)
         q = q_packed[b0 * qb:b1 * qb].reshape(b1 - b0, qb, 1, 8)
         q_rho = q_rho_all[b0 * qb:b1 * qb].reshape(b1 - b0, qb, 1)
         q_press = q_press_all[b0 * qb:b1 * qb].reshape(b1 - b0, qb, 1)
@@ -240,36 +325,31 @@ def forces_window_plain(q_packed, geo8, rp, geo_f, w_start, w_len, g,
     return pk_next, torch.stack([au, av], 1)
 
 
-def forces_window(q_packed, geo8, rp, geo_f, w_start, w_len, g,
+def forces_window(q_packed, geo8, rp, b_geo_f, spans, g,
                   cfg: SPHConfig, spec: TripleSpec,
                   half_dt: float = 0.0, damp: float = 1.0):
     """(pk_next (n_layout, 8), acc (n_layout, 2)) from the density outputs
-    and the (L, 8) force candidates.  ``g`` is a host pair of floats;
-    ``half_dt`` and ``damp`` are taken in float32.  The kernel on CUDA
-    tensors, the plain version on CPU ones."""
-    _check_windows(spec, q_packed, geo_f, 8, w_start, w_len)
-    dev = q_packed.device
+    (geo8 holds the fluid candidates), the (nb, 8) boundary rows [x, y, 0,
+    0, psi, 0, 0, 1] and the per-block span table.  ``g`` is a host pair of
+    floats; ``half_dt`` and ``damp`` are taken in float32 (the kernel's
+    float arguments round them).  The kernel on CUDA tensors, the plain
+    version on CPU ones."""
+    dev = _check_spans(spec, q_packed, b_geo_f, 8, spans)
     _check("geo8", geo8, (spec.n_layout, 8), torch.float32, dev)
     _check("rp", rp, (spec.n_layout, 2), torch.float32, dev)
     if dev.type == "cpu":
-        return forces_window_plain(q_packed, geo8, rp, geo_f, w_start, w_len,
-                                   g, cfg, spec, half_dt, damp)
+        return forces_window_plain(q_packed, geo8, rp, b_geo_f, spans, g, cfg,
+                                   spec, half_dt, damp)
     if dev.type != "cuda":
         raise ValueError(f"no window kernel for device {dev}")
-    from ._build import library
-
-    lib, _ = library()
+    fn, stream = _launch("forces_window", dev)
     pk_next = torch.empty_like(q_packed)
     acc = torch.empty((spec.n_layout, 2), dtype=torch.float32, device=dev)
-    c = forces_consts(cfg)
-    gx, gy = (float(v) for v in g)
-    err = lib.forces_window(
-        q_packed.data_ptr(), geo8.data_ptr(), rp.data_ptr(), geo_f.data_ptr(),
-        w_start.data_ptr(), w_len.data_ptr(), pk_next.data_ptr(),
-        acc.data_ptr(), spec.n_layout // spec.qb, spec.qb, spec.cap,
-        geo_f.shape[0], gx, gy, float(_F32(half_dt)), float(_F32(damp)),
-        c["half_inv_h"], c["two_inv_h"], c["eps_h2"], c["nach"], c["k_ap4"],
-        c["gfac"], torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(q_packed.data_ptr(), geo8.data_ptr(), rp.data_ptr(),
+             b_geo_f.data_ptr(), spans.data_ptr(), pk_next.data_ptr(),
+             acc.data_ptr(), spec.n_layout // spec.qb, spec.qb, spec.cap,
+             spec.n_spans, spec.n_layout, b_geo_f.shape[0], float(g[0]),
+             float(g[1]), float(half_dt), float(damp), *_const_args(forces_consts, cfg), stream)
     if err:
         raise RuntimeError(f"forces_window kernel launch failed: CUDA error {err}")
     forces_window.launches += 1

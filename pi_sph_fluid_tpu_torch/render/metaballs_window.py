@@ -31,8 +31,8 @@ from ..config import SPHConfig
 from ..models.scene import pixel_centers
 from ..ops.grid import cell_ids, csr_starts
 from ..ops.window.triple import LANE, TripleSpec, build_frame, triple_spec
-from ..ops.window.window_kernels import (_check_windows, _chunk, _windows,
-                                         _zero, density_consts)
+from ..ops.window.window_kernels import (_check_windows, _chunk, _launch,
+                                         _windows, _zero, density_consts)
 from .metaballs import pack_framebuffer, w_ref_of
 
 __all__ = ["WindowRenderer", "pixel_layout", "pixel_window_cap",
@@ -160,16 +160,13 @@ def field_window(q_packed, geo, w_start, w_len, cfg: SPHConfig,
         return field_window_plain(q_packed, geo, w_start, w_len, cfg, spec)
     if dev.type != "cuda":
         raise ValueError(f"no window kernel for device {dev}")
-    from ..ops.window._build import library
-
-    lib, _ = library()
+    fn, stream = _launch("field_window", dev)
     out = torch.empty(spec.n_layout, dtype=torch.float32, device=dev)
     c = density_consts(cfg)
-    err = lib.field_window(
-        q_packed.data_ptr(), geo.data_ptr(), w_start.data_ptr(),
-        w_len.data_ptr(), out.data_ptr(), spec.n_layout // spec.qb, spec.qb,
-        spec.cap, geo.shape[0], c["half_inv_h"], c["two_inv_h"],
-        torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(q_packed.data_ptr(), geo.data_ptr(), w_start.data_ptr(),
+             w_len.data_ptr(), out.data_ptr(), spec.n_layout // spec.qb,
+             spec.qb, spec.cap, geo.shape[0], c["half_inv_h"], c["two_inv_h"],
+             stream)
     if err:
         raise RuntimeError(f"field_window kernel launch failed: CUDA error {err}")
     field_window.launches += 1
@@ -246,7 +243,7 @@ class WindowRenderer:
         keys = torch.where(packed[:, 4] > 0, cell_ids(packed[:, 0], packed[:, 1], cfg),
                            torch.full_like(packed[:, 4], cfg.n_cells, dtype=_I32))
         order = torch.argsort(keys, stable=True)
-        layout_src, trip_src, T = build_frame(
+        layout_src, trip_src, T, _ = build_frame(
             fspec, cfg, csr_starts(keys, cfg.n_cells + 2), self._bcsr0)
         slim = self._slim(packed)[order]
         if slim.shape[0] >= fspec.n_layout:

@@ -18,7 +18,8 @@ the sorted arrays instead of one gathered window.
   ones;
 * ``span_density_plain``: the same in plain PyTorch;
 * ``run_variant`` / ``main()``: seeded inputs (a ``torch.Generator``), the
-  kernel checked nonzero and timed by CUDA events, at the JAX default (the
+  kernel checked nonzero and timed by CUDA events (and the host's
+  microseconds a launch), at the JAX default (the
   100k pool's shape: n_layout 101,632, L 234,368) and the 1M pool's
   (n_layout 1,009,152, L 2,115,968).
 
@@ -31,7 +32,8 @@ import argparse
 
 import torch
 
-from ..utils.profiling import bound, covered, event_ms
+from ..ops.window.window_kernels import _launch
+from ..utils.profiling import bound, covered, event_ms, host_us
 
 __all__ = ["span_density", "span_density_plain", "span_cost", "make_inputs",
            "run_variant", "main", "VARIANTS"]
@@ -119,13 +121,10 @@ def span_density(q, src, w_s, spans: int, span_cap: int, tq: int = 256,
         return span_density_plain(q, src, w_s, spans, span_cap, tq, qb)
     if dev.type != "cuda":
         raise ValueError(f"no probe kernel for device {dev}")
-    from ..ops.window._build import library
-
-    lib, _ = library("probe_kernels")
+    fn, stream = _launch("span_density", dev, "probe_kernels")
     out = torch.empty((q.shape[0], 1), dtype=torch.float32, device=dev)
-    err = lib.span_density(w_s.data_ptr(), q.data_ptr(), src.data_ptr(),
-                           out.data_ptr(), n_tiles * nqb, qb, spans, span_cap,
-                           src.shape[1], torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(w_s.data_ptr(), q.data_ptr(), src.data_ptr(), out.data_ptr(),
+             n_tiles * nqb, qb, spans, span_cap, src.shape[1], stream)
     if err:
         raise RuntimeError(f"span_density kernel launch failed: CUDA error {err}")
     span_density.launches += 1
@@ -165,14 +164,16 @@ def make_inputs(n_layout: int, L: int, spans: int, span_cap: int, device,
 
 
 def run_variant(n_layout: int, L: int, spans: int, span_cap: int, tq: int = 256,
-                qb: int = 16, reps: int = REPS) -> float:
-    """ms per launch of the kernel on seeded inputs (CUDA events), after
-    checking that it produced something other than zeros."""
+                qb: int = 16, reps: int = REPS) -> tuple[float, float]:
+    """(ms per launch of the kernel on seeded inputs by CUDA events, host
+    microseconds per launch), after checking that it produced something
+    other than zeros."""
     q, src, w_s = make_inputs(n_layout, L, spans, span_cap, "cuda", tq, qb)
     out = span_density(q, src, w_s, spans, span_cap, tq, qb)
     if not bool(torch.any(out != 0.0)):
         raise AssertionError("kernel produced all zeros")
-    return event_ms(lambda: span_density(q, src, w_s, spans, span_cap, tq, qb), reps)
+    launch = lambda: span_density(q, src, w_s, spans, span_cap, tq, qb)  # noqa: E731
+    return event_ms(launch, reps), host_us(launch, reps)
 
 
 def main(argv=None) -> dict:
@@ -190,10 +191,13 @@ def main(argv=None) -> dict:
     out = {}
     for n_layout, L in shapes:
         nl = n_layout // 256 * 256
-        row = {v: run_variant(nl, L, *sc) for v, sc in VARIANTS.items()}
+        runs = {v: run_variant(nl, L, *sc) for v, sc in VARIANTS.items()}
+        row = {v: ms for v, (ms, _) in runs.items()}
         row["B_over_A"], row["C_over_A"] = row["B"] / row["A"], row["C"] / row["A"]
+        row["host_us"] = min(us for _, us in runs.values())
         print(f"n_layout={nl} L={L}: A 1x512: {row['A']:7.4f} ms   "
-              f"B 4x128: {row['B']:7.4f} ms   C 2x256: {row['C']:7.4f} ms", flush=True)
+              f"B 4x128: {row['B']:7.4f} ms   C 2x256: {row['C']:7.4f} ms   "
+              f"(host {row['host_us']:.2f} us a launch)", flush=True)
         print(f"  equal lanes+bytes; B/A = {row['B_over_A']:.3f}x, "
               f"C/A = {row['C_over_A']:.3f}x", flush=True)
         out[f"n{nl}_L{L}"] = row

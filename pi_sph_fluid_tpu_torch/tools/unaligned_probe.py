@@ -7,7 +7,8 @@ that choice costs: a per-window copy kernel (csrc/probe_kernels.cu,
 ``window_copy_kernel``) runs over the same (K, L) float32 source twice,
 once from 128-aligned starts with 16-byte vector loads and once from odd
 starts with 4-byte loads; both are checked bitwise against the plain slice
-and timed by CUDA events.
+and timed by CUDA events and by the profiler's device time, beside the one
+PyTorch call that computes the same windows (``src[:, idx]``).
 
 * ``window_copy(starts, src, cap=128, aligned=False)``: (n_tiles, NB, K,
   cap) windows ``src[:, s:s+cap]``; the kernel on CUDA tensors, the plain
@@ -27,7 +28,9 @@ import argparse
 import numpy as np
 import torch
 
-from ..utils.profiling import bound, covered, event_ms
+from ..ops.window.window_kernels import _launch
+from ..utils.profiling import (bound, call_device_ms, covered, event_ms,
+                               host_us, kernel_device_ms)
 
 __all__ = ["window_copy", "window_copy_plain", "copy_cost", "make_starts", "main"]
 
@@ -82,15 +85,12 @@ def window_copy(starts: torch.Tensor, src: torch.Tensor, cap: int = CAP,
         return window_copy_plain(starts, src, cap)
     if dev.type != "cuda":
         raise ValueError(f"no probe kernel for device {dev}")
-    from ..ops.window._build import library
-
-    lib, _ = library("probe_kernels")
+    fn, stream = _launch("window_copy", dev, "probe_kernels")
     n_tiles, nb = starts.shape
     k, L = src.shape
     out = torch.empty((n_tiles, nb, k, cap), dtype=torch.float32, device=dev)
-    err = lib.window_copy(starts.data_ptr(), src.data_ptr(), out.data_ptr(),
-                          n_tiles * nb, k, L, cap, int(aligned),
-                          torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(starts.data_ptr(), src.data_ptr(), out.data_ptr(), n_tiles * nb,
+             k, L, cap, int(aligned), stream)
     if err:
         raise RuntimeError(f"window_copy kernel launch failed: CUDA error {err}")
     window_copy.launches += 1
@@ -122,8 +122,11 @@ def make_starts(L: int, n_tiles: int, seed: int = 0):
 
 
 def main(argv=None) -> dict:
-    """Copies and times both forms at each shape; returns {shape: {form:
-    ms}} with the aligned/unaligned ratio.  Needs a CUDA device."""
+    """Copies and times both forms at each shape (CUDA events, the
+    profiler's device ms and the host's microseconds a launch), with the
+    library call ``src[:, idx]`` on the same windows beside them; returns
+    {shape: {form: ms, ...}} with the aligned/unaligned ratio.  Needs a
+    CUDA device."""
     argparse.ArgumentParser(prog="unaligned_probe").parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("unaligned_probe: needs a CUDA device")
@@ -139,9 +142,20 @@ def main(argv=None) -> dict:
             ok = torch.equal(got, window_copy_plain(starts, src))
             if not ok:
                 raise AssertionError(f"L={L} {tag}: copied bytes differ from the slice")
-            row[tag] = event_ms(lambda: window_copy(starts, src, aligned=aligned), REPS)
+            copy = lambda: window_copy(starts, src, aligned=aligned)  # noqa: E731
+            row[tag] = event_ms(copy, REPS)
             print(f"L={L} n_tiles={n_tiles} {tag}: ok={ok}  {row[tag]:.4f} ms for "
                   f"{n_tiles}x{NB} window copies", flush=True)
+            # the one PyTorch call that computes the same, as a yardstick
+            idx = (starts.long()[..., None] + torch.arange(CAP, device=dev)).contiguous()
+            row[f"{tag}_device"] = kernel_device_ms(copy, "window_copy_kernel", dev)
+            row[f"{tag}_host_us"] = host_us(copy, REPS)
+            row[f"{tag}_library"] = event_ms(lambda: src[:, idx], REPS)
+            row[f"{tag}_library_device"] = call_device_ms(lambda: src[:, idx], dev)
+            print(f"  on the device {row[tag + '_device']:.4f} ms, host "
+                  f"{row[tag + '_host_us']:.2f} us a launch; src[:, idx]: "
+                  f"{row[tag + '_library']:.4f} ms by events, "
+                  f"{row[tag + '_library_device']:.4f} ms on the device", flush=True)
         row["unaligned_over_aligned"] = row["unaligned"] / row["aligned"]
         print(f"L={L} n_tiles={n_tiles}: unaligned/aligned = "
               f"{row['unaligned_over_aligned']:.3f}x", flush=True)

@@ -10,15 +10,22 @@
 * ``device_breakdown(fn)``: one call of ``fn`` under ``torch.profiler``:
   wall time, device time per CUDA kernel, and host synchronisations;
 * ``event_ms(fn, reps)``: mean ms of ``fn()`` by CUDA events;
+  ``host_us(fn, reps)``: mean host microseconds of ``fn()`` with the device
+  left to run behind (what a kernel wrapper costs the host per launch);
+  ``kernel_device_ms(fn, name, device)``: the profiler's device ms per
+  launch of one CUDA kernel, and ``call_device_ms(fn, device)`` the same
+  for a whole library call;
 * ``covered(starts, lens, L)``: the distinct rows of [0, L) that a set of
   windows touches, and ``bound(nbytes, flops)``: the least time the card
   could take for them (the H100 SXM peaks), for a kernel's roofline.
 
 Run as a script on the GPU, it measures the pool at 100k and 1M particles
 (bench.py's operating points) at resort_every=1 and 64: the spread of
-ms/tick over 5 repeats, then where the device time of a tick goes, and
-where the time of a rendered frame goes (``render_from_frame`` at 64x128
-and 256x128 on the r64 run's last frame, 20 frames):
+ms/tick over 5 repeats, then where the device time of a tick goes (with
+the share of the two window kernels, of the per-relayout span build that
+feeds them, and of any row gather left), and where the time of a rendered
+frame goes (``render_from_frame`` at 64x128 and 256x128 on the r64 run's
+last frame, 20 frames):
 
     python -m pi_sph_fluid_tpu_torch.utils.profiling
 """
@@ -38,10 +45,13 @@ from ..config import SPHConfig
 from ..models.boundary import prepare_boundary
 from ..models.engine_v3 import WindowEngine
 from ..models.scene import build_pool_scene
+from ..ops.grid import cell_ids, csr_starts
+from ..ops.window.triple import block_spans, build_frame
 from ..render.metaballs_window import WindowRenderer
 
 __all__ = ["pool_engine", "throughput", "device_breakdown", "event_ms",
-           "covered", "bound", "PEAK_BYTES", "PEAK_FLOPS"]
+           "host_us", "kernel_device_ms", "call_device_ms", "covered", "bound",
+           "PEAK_BYTES", "PEAK_FLOPS"]
 
 G = (0.0, -9.81)
 N_FRAMES = 20           # rendered frames per breakdown
@@ -86,9 +96,11 @@ def device_breakdown(fn, device) -> dict:
     """Runs ``fn()`` once under ``torch.profiler``.  Returns the traced wall
     seconds, the device-busy seconds (self time of every CUDA kernel,
     summed), per-kernel rows ``(name, seconds, launches)`` largest first,
-    and the count of ``cudaStreamSynchronize`` calls (the host waiting on
-    the device: ``.item()``, ``nonzero``, boolean masks).  On the CPU the
-    device rows are empty."""
+    the count of ``cudaStreamSynchronize`` calls (the host waiting on
+    the device: ``.item()``, ``nonzero``, boolean masks), and ``ops``, the
+    calls of every ``aten::`` operator as the host recorded them (complete
+    even where the device trace drops launches).  On the CPU the device
+    rows are empty."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -104,8 +116,9 @@ def device_breakdown(fn, device) -> dict:
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
+    ops = {e.key: e.count for e in events if e.key.startswith("aten::")}
     return dict(wall_s=wall, busy_s=sum(r[1] for r in rows), rows=rows,
-                syncs=syncs)
+                syncs=syncs, ops=ops)
 
 
 def event_ms(fn, reps: int) -> float:
@@ -120,6 +133,62 @@ def event_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Mean host microseconds of ``fn()`` over ``reps`` back-to-back calls
+    after one warm-up, the device left to run behind: the queue is empty at
+    the start and is waited for only after the clock stops, so this is what
+    the call costs the host (checks, allocations, the launch), not what the
+    kernel costs the device.  Keep ``reps`` below the launch queue's depth
+    (about a thousand launches)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def kernel_device_ms(fn, name: str, device, n: int = 20) -> float:
+    """The profiler's device time per launch of the CUDA kernels whose name
+    contains ``name``, averaged over the launches it recorded of ``n`` calls
+    of ``fn``.  It records some, not all: on an H100 it missed the first
+    launches of a fast loop, and late in a long process it kept 8 of 20, so
+    the calls wait 50 ms first and at least one must be recorded."""
+
+    def calls():
+        time.sleep(0.05)
+        for _ in range(n):
+            fn()
+
+    fn()
+    b = device_breakdown(calls, device)
+    rows = [(sec, cnt) for key, sec, cnt in b["rows"] if name in key]
+    count = sum(c for _, c in rows)
+    if not 1 <= count <= n:
+        raise RuntimeError(f"{name}: {count} launches recorded of {n}: {b['rows'][:5]}")
+    return sum(sec for sec, _ in rows) * 1e3 / count
+
+
+def call_device_ms(fn, device, n: int = 20) -> float:
+    """Device ms of one call of ``fn``, for a call that launches each of its
+    CUDA kernels once (one PyTorch library call): the sum over its kernels
+    of the profiler's mean time per recorded launch, which stays right when
+    the device trace drops launches."""
+
+    def calls():
+        time.sleep(0.05)
+        for _ in range(n):
+            fn()
+
+    fn()
+    rows = device_breakdown(calls, device)["rows"]
+    if not rows or any(cnt > n for _, _, cnt in rows):
+        raise RuntimeError(f"not one launch per kernel and call: {rows[:5]}")
+    return sum(sec / cnt for _, sec, cnt in rows) * 1e3
 
 
 def covered(starts: torch.Tensor, lens: torch.Tensor, L: int) -> int:
@@ -171,6 +240,7 @@ def main() -> None:
         for name, (multi, _, n) in cells.items():
             _print_breakdown(f"{fluid.n} {name}: {n} ticks", "tick", n,
                              device_breakdown(lambda: multi(sim0, _gravity(n)), dev))
+        _print_span_build(eng, sim0, dev)
         sim, _, frame = cells["r64"][0](sim0, _gravity(64))
         for rows in (64, 256):
             rend = WindowRenderer(eng, rows, 128)
@@ -181,11 +251,40 @@ def main() -> None:
                              f"{N_FRAMES} frames", "frame", N_FRAMES, b)
 
 
+def _print_span_build(eng, sim, dev) -> None:
+    """What feeds the window kernels, once per relayout: ``block_spans`` on
+    the primed state's own cells (event ms, device ms and launches)."""
+    cfg, pk = eng.cfg, sim.packed
+    cells = torch.where(pk[:, 4] > 0, cell_ids(pk[:, 0], pk[:, 1], cfg),
+                        torch.full_like(pk[:, 4], cfg.n_cells, dtype=torch.int32))
+    cell_starts = csr_starts(cells, cfg.n_cells + 2)
+    row_shift = build_frame(eng.spec, cfg, cell_starts, eng.b_cell_starts)[3]
+
+    def build():
+        return block_spans(eng.spec, cfg, cells, cell_starts, eng.b_cell_starts,
+                           row_shift)
+
+    ms = event_ms(build, 20)
+    b = device_breakdown(lambda: [build() for _ in range(20)], dev)
+    print(f"== {eng.n_real} span build (block_spans), per relayout: "
+          f"{ms:.4f} ms by events, device {b['busy_s'] * 1e3 / 20:.4f} ms in "
+          f"{sum(r[2] for r in b['rows']) / 20:.1f} launches", flush=True)
+
+
 def _print_breakdown(title: str, unit: str, n: int, b: dict) -> None:
     print(f"== {title}, traced wall {b['wall_s'] * 1e3 / n:.4f} ms/{unit}, "
           f"device busy {b['busy_s'] * 1e3 / n:.4f} ms/{unit} "
           f"({100 * b['busy_s'] / b['wall_s']:.1f}% of wall), "
           f"syncs/{unit} {b['syncs'] / n:.2f}", flush=True)
+    for what, keys in (("window kernels", ("density_window_kernel",
+                                           "forces_window_kernel")),
+                       ("row gathers (index_select, index)", ("index_select",
+                                                              "index_elementwise",
+                                                              "indexSelect",
+                                                              "gather"))):
+        rows = [r for r in b["rows"] if any(k in r[0] for k in keys)]
+        print(f"   {what}: {sum(r[1] for r in rows) * 1e3 / n:.4f} ms/{unit} in "
+              f"{sum(r[2] for r in rows) / n:.2f} launches/{unit}", flush=True)
     for key, s, count in b["rows"][:14]:
         print(f"   {s * 1e3 / n:8.4f} ms/{unit} {100 * s / b['busy_s']:5.1f}%"
               f"  x{count / n:5.2f}/{unit}  {key[:90]}", flush=True)

@@ -19,31 +19,35 @@ from pi_sph_fluid_tpu_torch.utils.profiling import pool_engine
 G = (0.0, -9.81)
 
 
-@pytest.fixture
-def pool_frame():
+@pytest.fixture(params=[(256, 1.0), (1024, 0.6), (96, 1.0)],
+                ids=["cap256", "cap1024_dense", "cap96"])
+def pool_frame(request):
     """One relayout of a 20k pool with seeded random velocities, so that
-    the viscosity term is live."""
+    the viscosity term is live; at the default cap; at the live run's 1024
+    with the pool squeezed to 0.6 of its width and height, so that the
+    windows are long enough to be staged in several chunks; and at a cap
+    that truncates windows (the kernels then compute the first cap lanes in
+    span order, as the plain versions do)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    eng, fluid = pool_engine(20_000, "cuda")
+    cap, squeeze = request.param
+    eng, fluid = pool_engine(20_000, "cuda", cap=cap)
     rng = np.random.default_rng(3)
-    fluid = fluid._replace(**{
+    fluid = fluid._replace(x=fluid.x * squeeze, y=fluid.y * squeeze, **{
         k: torch.from_numpy(rng.normal(0.0, 0.5, fluid.n).astype(np.float32)).cuda()
         for k in ("u", "v")})
     pk, ctx, ov = eng._relayout(eng._initial_packed(fluid))
-    assert int(ov) == 0
-    trip = ctx.trip_src.long()
-    geo_d = torch.cat([torch.cat([pk[:, [0, 1, 4]], torch.zeros_like(pk[:, :1])], 1),
-                       eng._tail_d]).index_select(0, trip)
-    return eng, pk, ctx, trip, geo_d
+    assert (int(ov) > 0) == (cap == 96)
+    assert (int(ctx.w_len.max()) > 256) == (squeeze < 1.0)   # one chunk: 256 lanes
+    return eng, pk, ctx
 
 
 @pytest.mark.cuda
 def test_density_kernel_matches_plain(pool_frame):
     """rho rtol 1e-6 (FMA contraction and another summation order); the
     copied geo8 columns bitwise."""
-    eng, pk, ctx, _, geo_d = pool_frame
-    args = (pk, geo_d, ctx.w_start, ctx.flen, eng.cfg, eng.spec)
+    eng, pk, ctx = pool_frame
+    args = (pk, eng._b_geo_d, ctx.spans, eng.cfg, eng.spec)
     before = wk.density_window.launches
     g8k, rpk = wk.density_window(*args)
     g8p, rpp = wk.density_window_plain(*args)
@@ -60,23 +64,106 @@ def test_forces_kernel_matches_plain(pool_frame, half_dt_frac, damp):
     half_dt times that bound plus 2 ulp; the copied pk_next columns
     bitwise; the priming pass (half_dt = 0, damp = 1) leaves u and v
     bitwise unchanged."""
-    eng, pk, ctx, trip, geo_d = pool_frame
-    g8, rp = wk.density_window_plain(pk, geo_d, ctx.w_start, ctx.flen,
-                                     eng.cfg, eng.spec)
-    geo_f = torch.cat([g8, eng._tail_f]).index_select(0, trip)
+    eng, pk, ctx = pool_frame
+    g8, rp = wk.density_window_plain(pk, eng._b_geo_d, ctx.spans, eng.cfg, eng.spec)
     half_dt = float(np.float32(half_dt_frac * eng.cfg.dt))
-    args = (pk, g8, rp, geo_f, ctx.w_start, ctx.flen, G, eng.cfg, eng.spec,
+    args = (pk, g8, rp, eng._b_geo_f, ctx.spans, G, eng.cfg, eng.spec,
             half_dt, damp)
     pkk, acck = wk.forces_window(*args)
     pkp, accp = wk.forces_window_plain(*args)
     torch.cuda.synchronize()
-    torch.testing.assert_close(acck, accp, rtol=2e-5, atol=2e-4)
-    bound = (half_dt * (2e-4 + 2e-5 * accp.abs())
+    # the squeezed pool's pressures are ~1e4 times the settled pool's and
+    # cancel in the sum, so its absolute tolerance scales with max |acc|
+    atol = max(2e-4, 1e-6 * float(accp.abs().max()))
+    torch.testing.assert_close(acck, accp, rtol=2e-5, atol=atol)
+    bound = (half_dt * (atol + 2e-5 * accp.abs())
              + 2 * torch.finfo(torch.float32).eps * pkp[:, 2:4].abs())
     assert bool(((pkk[:, 2:4] - pkp[:, 2:4]).abs() <= bound).all())
     assert torch.equal(pkk[:, [0, 1, 4, 5, 6, 7]], pkp[:, [0, 1, 4, 5, 6, 7]])
     if half_dt_frac == 0.0:
         assert torch.equal(pkk[:, 2:4], pk[:, 2:4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poison", ["cp", "position"])
+def test_forces_kernel_non_finite_candidate(poison):
+    """What a non-finite candidate row does to the forces kernel, which
+    does a lane's full arithmetic only within reach (r^2 < (2H)^2 widened by
+    1e-4; a non-finite r^2 counts as in reach).  A NaN cp (a dead pressure)
+    poisons every real query within 2H of the row and no query beyond it:
+    those keep, bitwise, the acc of the clean input, where the TPU kernel
+    and the plain version (NaN * 0 on every lane of the window) poison the
+    whole window.  A NaN position poisons exactly the queries it poisons in
+    the plain version: every real query of a block whose spans hold the
+    row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    eng, fluid = pool_engine(5_000, "cuda")
+    pk, ctx, ov = eng._relayout(eng._initial_packed(fluid))
+    assert int(ov) == 0
+    g8, rp = wk.density_window_plain(pk, eng._b_geo_d, ctx.spans, eng.cfg, eng.spec)
+    real = pk[:, 4] > 0.0
+    mid = pk[real, 0:2].median(0).values
+    dist = torch.where(real, (pk[:, 0:2] - mid).square().sum(1), torch.inf)
+    j = int(dist.argmin())
+    r = (pk[:, 0:2] - pk[j, 0:2]).square().sum(1).sqrt()
+    two_h = 2.0 * eng.cfg.h
+
+    def run(fn, pk_, g8_):
+        out = fn(pk_, g8_, rp, eng._b_geo_f, ctx.spans, G, eng.cfg, eng.spec,
+                 eng.half_dt, 0.97)[1]
+        torch.cuda.synchronize()
+        return out
+
+    clean = run(wk.forces_window, pk, g8)
+    assert bool(torch.isfinite(clean).all())
+    pk_bad, g8_bad = pk.clone(), g8.clone()
+    if poison == "cp":
+        g8_bad[j, 5] = torch.nan
+    else:
+        pk_bad[j, 0] = g8_bad[j, 0] = torch.nan
+    got = torch.isfinite(run(wk.forces_window, pk_bad, g8_bad)).all(1)
+    want = torch.isfinite(run(wk.forces_window_plain, pk_bad, g8_bad)).all(1)
+    assert not bool(want[j]) and not bool(got[j])
+    assert bool((got | ~want).all())        # the kernel poisons no more
+    if poison == "position":
+        assert torch.equal(got, want)
+        return
+    near, far = real & (r < 0.999 * two_h), r > 1.001 * two_h
+    assert int(near.sum()) > 4 and not bool(got[near].any())
+    assert bool(got[far].all())
+    assert int((far & ~want).sum()) > 0     # where the plain version differs
+    acc_bad = run(wk.forces_window, pk_bad, g8_bad)
+    assert torch.equal(acc_bad[far], clean[far])
+
+
+@pytest.mark.cuda
+def test_span_kernels_take_garbage_spans_and_small_blocks():
+    """Spans that reach outside their arrays are clamped, never read past
+    (no fault on synchronize), and qb = 8 with seg_q = 3 (64 threads a
+    block, 10 spans) agrees with the plain versions like the default."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    eng, fluid = pool_engine(5_000, "cuda", tq=32, qb=8, seg_q=3)
+    pk, ctx, ov = eng._relayout(eng._initial_packed(fluid))
+    assert int(ov) == 0 and ctx.spans.shape[1] == 10
+    spans = ctx.spans.clone()
+    nb = eng._b_geo_d.shape[0]
+    spans[0, 0] = torch.tensor([-5, 7])
+    spans[1, 1] = torch.tensor([eng.spec.n_layout - 2, 9])
+    spans[2, 6] = torch.tensor([nb - 1, 1 << 30])
+    spans[3, 7] = torch.tensor([1 << 30, 4])
+    spans[4, 2] = torch.tensor([3, -8])
+    for sp_ in (ctx.spans, spans):
+        g8k, rpk = wk.density_window(pk, eng._b_geo_d, sp_, eng.cfg, eng.spec)
+        g8p, rpp = wk.density_window_plain(pk, eng._b_geo_d, sp_, eng.cfg, eng.spec)
+        pkk, acck = wk.forces_window(pk, g8p, rpp, eng._b_geo_f, sp_, G, eng.cfg,
+                                     eng.spec, eng.half_dt, 0.97)
+        pkp, accp = wk.forces_window_plain(pk, g8p, rpp, eng._b_geo_f, sp_, G,
+                                           eng.cfg, eng.spec, eng.half_dt, 0.97)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(rpk[:, 0], rpp[:, 0], rtol=1e-6, atol=0)
+        torch.testing.assert_close(acck, accp, rtol=2e-5, atol=2e-4)
 
 
 @pytest.mark.cuda

@@ -59,3 +59,37 @@ def test_device_breakdown_on_cpu_has_no_device_rows():
                            "cpu")
     assert out["wall_s"] > 0
     assert out["rows"] == [] and out["busy_s"] == 0 and out["syncs"] == 0
+
+
+def test_breakdown_counts_operator_calls_and_pair_passes_gather_nothing():
+    """``ops`` counts the aten operators the host recorded.  The two window
+    passes of a tick call no index_select, no index and no cat: their
+    candidates are read through the relayout's spans, not gathered."""
+    eng, _, sim = _drop()
+    pk, ctx, _ = eng._relayout(eng._kick_drift(sim))
+    out = device_breakdown(lambda: eng._pair_passes(pk, ctx, np.float32(G),
+                                                    eng.half_dt, 1.0), "cpu")
+    ops = out["ops"]
+    assert ops.get("aten::sqrt", 0) >= 2           # both plain passes ran
+    assert "aten::index_select" not in ops
+    relayout = device_breakdown(lambda: eng._relayout(sim.packed), "cpu")["ops"]
+    assert relayout.get("aten::index", 0) >= 2     # the relayout's row gathers
+
+
+def test_launch_probe_builds_every_wrappers_call():
+    """The launch probe's calls, at a small pool on the CPU: the five
+    wrappers by name, the window passes returning their two outputs and
+    the field one, through the plain versions (no launch counted)."""
+    from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk
+    from pi_sph_fluid_tpu_torch.tools import launch_probe
+
+    calls = launch_probe.wrapper_calls("cpu", 1_500)
+    assert list(calls) == ["density_window", "forces_window", "field_window",
+                           "window_copy", "span_density"]
+    geo8, rp = calls["density_window"]()
+    pk_next, acc = calls["forces_window"]()
+    field = calls["field_window"]()
+    assert geo8.shape == pk_next.shape and rp.shape == acc.shape == (geo8.shape[0], 2)
+    assert field.dim() == 1 and torch.isfinite(field).all()
+    assert torch.isfinite(acc).all() and (rp[:, 0] >= 0).all()
+    assert wk.density_window.launches == wk.forces_window.launches == 0

@@ -1,6 +1,8 @@
-"""Port vs the JAX package: the row-triple relayout (integer arrays, exact)
-and the two window passes (the port's plain versions vs the Pallas kernels
-in interpret mode, on the same numpy-made inputs).
+"""Port vs the JAX package: the row-triple relayout (integer arrays, exact,
+and the span table that names every window's rows) and the two window
+passes (the port's plain versions, reading their candidates through the
+spans, vs the Pallas kernels in interpret mode over the gathered windows,
+on the same numpy-made inputs).
 
 The JAX side is WindowEngine(..., planes=1, band=0, interpret=True): the
 exact-start layout the port implements."""
@@ -66,6 +68,25 @@ def test_relayout_integer_arrays_equal(case):
     assert int(tov) == int(jov)
     if case == "dam_cap128":
         assert int(tov) > 0        # window truncation is counted
+    # the span table names the same rows as every block's window of
+    # trip_src (row-major instead of column-major), bitwise
+    spans = tctx.spans.numpy()
+    n_layout, cover = te.spec.n_layout, te.spec.n_spans // 2
+    assert spans.dtype == np.int32
+    assert spans.shape == (n_layout // te.spec.qb, 2 * cover, 2)
+    w_start = tctx.w_start.numpy().reshape(-1)
+    w_len = tctx.w_len.numpy().reshape(-1)
+    trip = tctx.trip_src.numpy()
+    np.testing.assert_array_equal(spans[:, :, 1].sum(1), w_len)
+    assert (spans[:, :, 1] >= 0).all()
+    assert (w_len > 0).any() and (spans[:, :, 1] == 0).any()
+    inert = te.spec.n_src - 1
+    for b in np.nonzero(w_len)[0]:
+        rows = [np.arange(s, s + n) + (n_layout if k >= cover else 0)
+                for k, (s, n) in enumerate(spans[b])]
+        want = trip[w_start[b]:w_start[b] + w_len[b]]
+        want = want[want != inert]
+        np.testing.assert_array_equal(np.sort(np.concatenate(rows)), np.sort(want))
 
 
 def _jitter(cfg, fluid):
@@ -96,7 +117,8 @@ def frame():
         np.concatenate([pk_np[:, [0, 1, 4]], np.zeros((len(pk_np), 1), np.float32)], 1),
         np.asarray(je.b_geo_d), np.asarray(je.inert_row_d)])
     geo_d = np.ascontiguousarray(src_d[trip])          # (L, 4)
-    return je, te, pk_np, ctx, geo_d, trip
+    spans = te._relayout(torch.tensor(np.asarray(je._initial_packed(fluid))))[1].spans
+    return je, te, pk_np, ctx, geo_d, trip, spans
 
 
 def _t(a, dtype=None):
@@ -111,12 +133,11 @@ def test_density_plain_matches_pallas(frame):
     into ~1e-4 of p.  The epilogue itself is exact: the port's p and cp
     are bitwise the Tait EOS of its own rho.  geo8 columns 0-4 and 7 are
     copies, so bitwise."""
-    je, te, pk, ctx, geo_d, _ = frame
+    je, te, pk, ctx, geo_d, _, spans = frame
     jg8, jrp = density_window_call(jnp.asarray(pk), jnp.asarray(geo_d.T),
                                    ctx.w_start, ctx.flen, je.cfg, je.spec,
                                    interpret=True)
-    tg8, trp = wk.density_window(_t(pk), _t(geo_d), _t(ctx.w_start),
-                                 _t(ctx.flen), te.cfg, te.spec)
+    tg8, trp = wk.density_window(_t(pk), te._b_geo_d, spans, te.cfg, te.spec)
     jg8, jrp, tg8, trp = np.asarray(jg8), np.asarray(jrp), tg8.numpy(), trp.numpy()
     rho, p = trp[:, 0], trp[:, 1]
     assert (jrp[:, 1] > 0).sum() >= 10       # the EOS branch is live
@@ -143,8 +164,9 @@ def test_forces_plain_matches_pallas(frame, half_dt_frac, damp):
     """acc rtol 2e-5 / atol 2e-4 (test_window_engine.py:70-73); u' and v'
     within half_dt times the acc tolerance, plus 2 ulp of u'.  With
     half_dt = 0, damp = 1 (the priming pass) u and v are bitwise unchanged.
-    Both packages take the same density outputs and force candidates."""
-    je, te, pk, ctx, geo_d, trip = frame
+    Both packages take the same density outputs; JAX reads the gathered
+    force candidates, the port the same rows through the spans."""
+    je, te, pk, ctx, geo_d, trip, spans = frame
     geo8, rp = density_window_call(jnp.asarray(pk), jnp.asarray(geo_d.T),
                                    ctx.w_start, ctx.flen, je.cfg, je.spec,
                                    interpret=True)
@@ -157,9 +179,9 @@ def test_forces_plain_matches_pallas(frame, half_dt_frac, damp):
         jnp.asarray(geo_f.T), ctx.w_start, ctx.flen,
         jnp.asarray(G, jnp.float32), je.cfg, je.spec, half_dt=half_dt,
         damp=damp, interpret=True)
-    tpk, tacc = wk.forces_window(_t(pk), _t(geo8), _t(rp), _t(geo_f),
-                                 _t(ctx.w_start), _t(ctx.flen), G, te.cfg,
-                                 te.spec, half_dt=half_dt, damp=damp)
+    np.testing.assert_array_equal(te._b_geo_f.numpy(), np.asarray(je.b_geo))
+    tpk, tacc = wk.forces_window(_t(pk), _t(geo8), _t(rp), te._b_geo_f, spans,
+                                 G, te.cfg, te.spec, half_dt=half_dt, damp=damp)
     jpk, jacc, tpk, tacc = (np.asarray(jpk), np.asarray(jacc), tpk.numpy(),
                             tacc.numpy())
     np.testing.assert_allclose(tacc, jacc, rtol=2e-5, atol=2e-4)
@@ -175,19 +197,29 @@ def test_forces_plain_matches_pallas(frame, half_dt_frac, damp):
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
-    """No silent fallback: a tensor on a device with no kernel raises."""
+    """No silent fallback: a tensor on a device with no kernel raises, and
+    so does an argument of the wrong type, shape or layout."""
     te = _engines({}, "drop", **SMALL)[1]
     s = te.spec
     meta = dict(device="meta")
     q = torch.empty((s.n_layout, 8), **meta)
-    ws = torch.empty((s.n_tiles, s.nqb), dtype=torch.int32, **meta)
+    sp = torch.empty((s.n_layout // s.qb, s.n_spans, 2), dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="no window kernel"):
-        wk.density_window(q, torch.empty((s.L, 4), **meta), ws, ws, te.cfg, s)
+        wk.density_window(q, torch.empty((5, 4), **meta), sp, te.cfg, s)
     with pytest.raises(ValueError, match="no window kernel"):
         wk.forces_window(q, q, torch.empty((s.n_layout, 2), **meta),
-                         torch.empty((s.L, 8), **meta), ws, ws, G, te.cfg, s)
+                         torch.empty((5, 8), **meta), sp, G, te.cfg, s)
+    q, sp = torch.zeros((s.n_layout, 8)), torch.zeros(sp.shape, dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
-        wk.density_window(torch.zeros((s.n_layout, 8)), torch.zeros((s.L, 4)),
-                          torch.zeros((s.n_tiles, s.nqb)),
-                          torch.zeros((s.n_tiles, s.nqb), dtype=torch.int32),
-                          te.cfg, s)
+        wk.density_window(q, te._b_geo_d, sp.float(), te.cfg, s)
+    with pytest.raises(ValueError, match="spans"):
+        wk.density_window(q, te._b_geo_d, sp[:, :-1], te.cfg, s)
+    with pytest.raises(ValueError, match="boundary rows"):
+        wk.density_window(q, te._b_geo_f, sp, te.cfg, s)
+    with pytest.raises(ValueError, match="not contiguous"):
+        wk.forces_window(q, q.T.contiguous().T, torch.zeros((s.n_layout, 2)),
+                         te._b_geo_f, sp, G, te.cfg, s)
+    with pytest.raises(ValueError, match="n_spans"):
+        wk.density_window(q, te._b_geo_d, torch.zeros((sp.shape[0], 34, 2),
+                                                      dtype=torch.int32),
+                          te.cfg, s._replace(seg_q=15))
