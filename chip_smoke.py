@@ -14,16 +14,20 @@ Phases, each printing its own line with its seconds:
    100k pool (density and forces through the relayout's span table, at the
    default cap and again at cap=1024, the live run's, on the pool squeezed
    until a window spans several staged chunks; the field kernel
-   through the renderer's frame inputs at 64x128), with times for both,
-   each kernel's window lanes (sum of min(w_len, cap), and the distinct
-   candidate rows they touch) and its bound on this card; then the host
+   through the renderer's inputs for the same relayout, the packed state,
+   the start grid and the static index pairs, at 64x128), with times for
+   both, each kernel's window lanes (sum of min(w_len, cap), for the field
+   kernel the fluid lanes alone, and the distinct candidate rows they
+   touch) and its bound on this card; then the host
    microseconds per launch of each of the five wrappers (launch_host);
 4. the 100k pool (bench.py's operating point) through WindowEngine: prime,
    64 ticks at resort_every=1, 384 ticks at resort_every=64; the launch
    counters must grow by exactly one per tick; the plain path's ms/tick on
    a short run beside the kernel path's; and a profiler check that the 62
    more carried ticks of a 64-tick sticky group over a 2-tick one add no
-   host sync, no ``index_select``, no ``index`` and no ``cat``;
+   host sync, no ``index_select``, no ``index`` and no ``cat``; that a
+   rendered frame launches no ``index_select`` and no ``cat`` and costs the
+   host no wait, and that a relayout runs one ``cummax``;
 5. the 3k-particle C golden drop, all 2000 steps through the kernels;
 6. the 1M pool: 64 ticks at resort_every=64, after one warm-up group;
 7. render: render_from_frame ms per frame at 64x128 and 256x128 on the
@@ -131,11 +135,14 @@ SIM_KERNELS = ("density_window", "forces_window", "field_window")
 # per distinct candidate row.  Density and forces read their fluid
 # candidates from arrays the query rows already count in full (the packed
 # state, geo8), so only a distinct boundary row adds bytes (lane_bytes);
-# the field kernel reads a gathered candidate array, 16 B a distinct row,
-# and a pixel needs only its x and y of the query row
+# the field kernel's queries are pixels, not rows of the state, so every
+# distinct fluid row it touches adds the bytes it needs of it (_field_bound)
 COST = {"density_window": dict(flops=16, row_bytes=32 + 32 + 8, lane_bytes=16),
-        "forces_window": dict(flops=39, far_flops=6, row_bytes=32 + 32 + 8 + 32 + 8, lane_bytes=32),
-        "field_window": dict(flops=17, row_bytes=8 + 4, lane_bytes=16)}
+        "forces_window": dict(flops=39, far_flops=6, row_bytes=32 + 32 + 8 + 32 + 8, lane_bytes=32)}
+# the field kernel: operations a pair lane, bytes a distinct fluid row (x, y
+# and m of the packed row: the function needs no more, though the card moves
+# the row's whole 32-byte sector) and a pixel (x, y read, the field written)
+FIELD_FLOPS, FIELD_ROW_BYTES, FIELD_PIXEL_BYTES = 17, 12, 8 + 4
 
 
 def _phase(name: str, t0: float, **info) -> None:
@@ -160,19 +167,22 @@ def _gravity(n: int) -> np.ndarray:
     return np.tile(np.float32(G), (n, 1))
 
 
-def _bound(name: str, n_rows: int, qb: int, w_start, w_len, cap: int, L: int) -> dict:
-    """The kernel's bound on this card for these inputs: the larger of its
-    bytes (query rows, window arrays, each distinct candidate row once) over
-    the memory rate and its pair-lane operations over the float32 rate.
-    Lanes are sum min(w_len, cap), clamped to the candidate array as the
-    kernels clamp them."""
-    c = COST[name]
-    s = w_start.reshape(-1).long().clamp(0, L)
-    n = torch.minimum(w_len.reshape(-1).long().clamp(0, cap), L - s).clamp_min(0)
-    lanes, rows = int(n.sum()), covered(s, n, L)
-    nbytes = n_rows * c["row_bytes"] + w_start.numel() * 8 + rows * c["lane_bytes"]
+def _field_bound(spec, n_src: int, grid, span_idx) -> dict:
+    """The field kernel's bound on this card for these inputs: the larger
+    of its bytes (x, y and m, 12 B, of each distinct fluid row under the pixel
+    blocks' spans once, 12 B a pixel, the static index pairs and the start
+    grid) over the memory rate and its pair-lane operations (17 over
+    qb x fluid lanes) over the float32 rate.  Lanes are sum min(sum of span
+    lengths, cap) with every span resolved and clamped as the kernel does
+    it (the plain version's own table); boundary lanes are not read and not
+    counted."""
+    start, length = wk._grid_spans(span_idx, grid, n_src)
+    rows = covered(start, length, n_src)
+    lanes = int(length.sum(1).clamp_max(spec.cap).sum())
+    nbytes = (rows * FIELD_ROW_BYTES + spec.n_layout * FIELD_PIXEL_BYTES
+              + span_idx.numel() * 4 + grid.numel() * 4)
     return dict(window_lanes=lanes, candidate_rows=rows,
-                **bound(nbytes, qb * lanes * c["flops"]))
+                **bound(nbytes, spec.qb * lanes * FIELD_FLOPS))
 
 
 def _pairs_in_reach(pk, b_geo, spans, cfg, spec) -> int:
@@ -342,9 +352,10 @@ def compare_kernels(eng, fluid, results: dict) -> None:
     density and forces (compare_physics) at the engine's cap and again at
     cap=1024, the live run's, on the pool squeezed to 0.6 of its width and
     height, as dense as the live run's collapse, where a window spans
-    several staged chunks; then the field kernel over the renderer's inputs for the same
-    frame at 64x128 (scaled field within rtol 1e-5 / atol 5e-5, lit pixels
-    identical away from the threshold)."""
+    several staged chunks; then the field kernel over the renderer's inputs
+    for the same relayout at 64x128: the packed state, the relayout's start
+    grid and the renderer's static index pairs (scaled field within rtol
+    1e-5 / atol 5e-5, lit pixels identical away from the threshold)."""
     cfg = eng.cfg
     physics, (pk, ctx) = compare_physics(eng, fluid)
     for name, r in physics.items():
@@ -356,11 +367,11 @@ def compare_kernels(eng, fluid, results: dict) -> None:
         results[name]["cap1024"] = r
 
     rend = mw.WindowRenderer(eng, *SHAPES[0])
-    zero = torch.zeros_like(pk[:, 0])
-    sim = T.PackedSim(packed=pk, ids=pk[:, 7].int(), au=zero, av=zero)
-    geo_r, ws_r, wl_r, ov_r = rend.frame_inputs(sim, (ctx.trip_src, ctx.T))
+    rspec = rend.reuse_spec
+    _, wl_r, ov_r = mw.pixel_windows(ctx.T, rend.c_first, rend.c_last, rend.has_q,
+                                     rspec.cap, cfg.n_cells)
     assert int(ov_r) == 0, f"render overflow {int(ov_r)}"
-    r_args = (rend.q_packed, geo_r, ws_r, wl_r, cfg, rend.reuse_spec)
+    r_args = (rend.q_packed, pk, ctx.start_grid, rend.reuse_span_idx, cfg, rspec)
     fk = mw.field_window(*r_args) * rend.field_scale
     fp = mw.field_window_plain(*r_args) * rend.field_scale
     _sync()
@@ -370,19 +381,19 @@ def compare_kernels(eng, fluid, results: dict) -> None:
     confident = (fp - 1.0).abs() > 1e-3
     assert torch.equal((fk >= 1.0)[confident], (fp >= 1.0)[confident]), \
         "field: a lit pixel away from the threshold differs"
-    rspec = rend.reuse_spec
     r = results["field_window"]
     r.update(
         max_abs_err=float(dfield.max()),
         ms=event_ms(lambda: mw.field_window(*r_args), 50),
         plain_ms=event_ms(lambda: mw.field_window_plain(*r_args), 5),
         device_ms=_device_ms(lambda: mw.field_window(*r_args), "field_window"),
-        **_bound("field_window", rspec.n_layout, rspec.qb, ws_r, wl_r,
-                 rspec.cap, geo_r.shape[0]))
+        **_field_bound(rspec, pk.shape[0], ctx.start_grid, rend.reuse_span_idx))
+    assert r["window_lanes"] <= int(wl_r.sum()), (r["window_lanes"], int(wl_r.sum()))
     print(f"  field (64x128, cap {rspec.cap}): max |d_field| {float(dfield.max()):.3e}; "
           f"kernel {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, plain "
-          f"{r['plain_ms']:.4f} ms; sum min(w_len, cap) {r['window_lanes']} lanes, "
-          f"{r['candidate_rows']} distinct candidate rows, {r['bytes']} B, "
+          f"{r['plain_ms']:.4f} ms; {r['window_lanes']} fluid lanes of the "
+          f"windows' {int(wl_r.sum())}, "
+          f"{r['candidate_rows']} distinct fluid rows, {r['bytes']} B, "
           f"{r['flops']} FLOP: bound {r['bound_ms']:.6f} ms by {r['bound_by']}",
           flush=True)
 
@@ -423,6 +434,7 @@ def run_pool(eng, fluid) -> dict:
         _sync()
         out["plain_r1_ms_per_tick"] = (time.perf_counter() - t0) / N_PLAIN * 1e3
     out.update(check_carried_ticks(eng, sim0))
+    out.update(check_frame_ops(eng, *out["last"]))
     return out
 
 
@@ -451,6 +463,32 @@ def check_carried_ticks(eng, sim0) -> dict:
              for key in counts[2]}
     assert all(v == 0 for v in extra.values()), (extra, counts)
     return dict(extra, index_select_kernels=0, group_of_2=json.dumps(counts[2]))
+
+
+def check_frame_ops(eng, sim, frame) -> dict:
+    """A rendered frame prepares no candidates: by the profiler's host-side
+    counts, N_FRAMES calls of ``render_from_frame`` launch no
+    ``index_select`` and no ``cat`` and wait for the device not once; and a
+    relayout runs exactly one ``cummax`` (the layout's row table; the
+    candidate map's is gone), counted as ``aten::_cummax_helper``, which a
+    call of ``torch.cummax`` reaches once (it records ``aten::cummax``
+    twice, for the functional and the out form)."""
+    rend = mw.WindowRenderer(eng, *SHAPES[0])
+    rend.render_from_frame(sim, frame)
+    b = device_breakdown(lambda: [rend.render_from_frame(sim, frame)
+                                  for _ in range(N_FRAMES)], DEV)
+    frame_ops = dict(syncs=b["syncs"], **{
+        op: b["ops"].get(f"aten::{op}", 0) for op in ("index_select", "cat", "cummax")})
+    assert all(v == 0 for v in frame_ops.values()), frame_ops
+    fields = [cnt for key, _, cnt in b["rows"] if "field_window_kernel" in key]
+    assert fields and sum(fields) <= N_FRAMES, b["rows"][:6]
+    eng._relayout(sim.packed)
+    cummax = device_breakdown(lambda: eng._relayout(sim.packed), DEV)["ops"].get(
+        "aten::_cummax_helper", 0)
+    assert cummax == 1, f"{cummax} cummax calls in one relayout"
+    return dict(frame_index_select=0, frame_cat=0, frame_syncs=0,
+                frame_launches=sum(r[2] for r in b["rows"]) / N_FRAMES,
+                relayout_cummax=cummax)
 
 
 def run_golden() -> dict:
@@ -739,6 +777,7 @@ def run_probes(results: dict) -> dict:
             case = _case(lambda: sp.span_density(q, src, w_s, spans, cap),
                          lambda: sp.span_density_plain(q, src, w_s, spans, cap),
                          "span_density", sp.span_cost(q, src, w_s, spans, cap), err)
+            case["err_over_max_out"] = err / scale
             case["library_ms"] = case["library_device_ms"] = None
             cases[f"span_n{n_layout}_{v}"] = case
         del q, src, w_s, got, want
@@ -755,8 +794,9 @@ def run_probes(results: dict) -> dict:
               f"plain {c['plain_ms']:.4f} ms, library {c['library_ms']} ms, "
               f"library device {c['library_device_ms']} ms; "
               f"{c['bytes']} B, {c['flops']} FLOP, bound {c['bound_ms']:.6f} ms by "
-              f"{c['bound_by']}, share {c['share']:.3f}; max |err| {c['max_abs_err']:.3e}",
-              flush=True)
+              f"{c['bound_by']}, share {c['share']:.3f}; max |err| {c['max_abs_err']:.3e}"
+              + (f" ({c['err_over_max_out']:.3e} of max |out|)"
+                 if "err_over_max_out" in c else ""), flush=True)
     ratios = {}
     for L, n_tiles in up.SHAPES:
         a, u = cases[f"copy_L{L}_aligned"], cases[f"copy_L{L}_unaligned"]

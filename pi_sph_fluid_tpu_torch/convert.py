@@ -4,9 +4,10 @@
 ``GridContext`` or ``PackedSim(packed, ids, au, av)`` (or any mapping of
 field name to array) into the port's NamedTuple of tensors on ``device``;
 ``to_numpy`` gives the fields back as numpy arrays, which the JAX package's
-constructors accept; ``frame`` carries an engine's relayout frame
-``(trip_src, T)`` across, so that both renderers can draw from the same one.  Nothing here imports JAX: ``np.asarray`` reads a JAX
-array through the buffer protocol.
+constructors accept; ``frame`` rebuilds the port's relayout ``Frame`` for a
+layout-fresh JAX state and checks it against the JAX frame's ``T``, so that
+both renderers can draw from the same relayout.  Nothing here imports JAX:
+``np.asarray`` reads a JAX array through the buffer protocol.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import numpy as np
 import torch
 
 from .models.engine_v3 import PackedSim
-from .ops.grid import GridContext
+from .ops.grid import GridContext, cell_ids, csr_starts
+from .ops.window.triple import Frame, build_frame, start_grid
 from .state import BoundaryState, FluidState
 
 __all__ = ["to_torch", "to_numpy", "fluid_state", "boundary_state",
@@ -54,8 +56,23 @@ def packed_sim(src, device) -> PackedSim:
     return to_torch(PackedSim, src, device)
 
 
-def frame(src, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """A JAX ``(trip_src, T)`` relayout frame as the port's int32 tensors."""
-    trip_src, T = src
-    return (torch.as_tensor(np.array(trip_src, np.int32), device=device),
-            torch.as_tensor(np.array(T, np.int32), device=device))
+def frame(engine, sim: PackedSim, src) -> Frame:
+    """The port's ``Frame`` for ``sim``, a state the JAX engine left
+    layout-fresh (``make_multi_step(return_frame=True)`` at resort_every=1),
+    given the port's ``engine`` on the same scene and the JAX frame ``src =
+    (trip_src, T)``.  The JAX frame names gathered candidate slots, the
+    port's the rows of the state itself, so it is derived anew from the
+    state: the live rows' cell ids give the CSR, the CSR the layout's row
+    shifts and T as in a relayout.  The T so derived must equal JAX's
+    bitwise, or ``sim`` is not the state that frame was built for."""
+    cfg, pk = engine.cfg, sim.packed
+    cells = torch.where(pk[:, 4] > 0, cell_ids(pk[:, 0], pk[:, 1], cfg),
+                        torch.full_like(pk[:, 4], cfg.n_cells, dtype=torch.int32))
+    cell_starts = csr_starts(cells, cfg.n_cells + 2)
+    _, T, row_shift = build_frame(engine.spec, cfg, cell_starts,
+                                  engine.b_cell_starts)
+    want = torch.as_tensor(np.array(src[1], np.int32), device=pk.device)
+    if not torch.equal(T, want):
+        raise ValueError("the state's own T differs from the frame's: the "
+                         "frame was not built for this layout-fresh state")
+    return Frame(start_grid(cfg, cell_starts, row_shift), T)

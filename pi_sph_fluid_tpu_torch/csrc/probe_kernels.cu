@@ -20,9 +20,11 @@ namespace {
 // max(a, 0) that propagates NaN like jnp.maximum.
 __device__ __forceinline__ float max0(float a) { return a < 0.f ? 0.f : a; }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// Sum over an aligned group of G lanes of a warp; every lane of the warp calls.
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -81,47 +83,104 @@ __global__ void window_copy_kernel(const int* __restrict__ starts,
 //
 // Bound on this card: operations, 14 FP32 operations a pair lane (sqrt, max
 // counted as one) against 12 B a distinct source column, shared by the
-// block's qb queries.  As in the density kernel, one CUDA block per query
-// block stages its spans x span_cap columns of rows 0-2 in shared memory
-// (struct of arrays, 12 B a lane: 6 KB at the probe's 512 lanes), one warp
-// per query strides the staged lanes, and a __shfl_xor_sync butterfly
-// reduces the warp's partial sums.  Several spans cost one staging pass per
-// span instead of one: that difference is what the probe measures.
+// block's qb queries.  What it waits for is the rate at which an SM starts
+// instructions, so the design is the shipped window kernels' (see
+// window_kernels.cu, "Threads"), spending fewer of them on a pair lane:
+//  * a query gets a group of SPAN_G = 8 threads of a warp instead of a warp
+//    (a 3-round shuffle instead of 5), one query block a CUDA block;
+//  * a thread keeps SPAN_QPT = 2 queries in registers, so one shared load and
+//    one turn of the loop feed two pair lanes;
+//  * the columns are staged as one float4 (x, y, m, 0) a lane, one 16-byte
+//    shared load instead of three 4-byte ones, through a fixed SPAN_CHUNK of
+//    static shared memory (8 KB), so any spans x span_cap launches with no
+//    opt-in;
+//  * the square root is the card's approximation (one sqrt.approx.f32, at
+//    most 2^-23 relative error by the PTX manual) instead of the correctly
+//    rounded sqrtf, a sequence of about nine instructions: the probe's
+//    tolerance (1e-5 of max |out| against the plain version) holds with it
+//    (chip_smoke.py prints 1.7e-7 to 2.3e-7 of max |out| on an H100), and it
+//    took a quarter off the kernel's time.  The shipped
+//    density, forces and field kernels keep sqrtf: their outputs are held
+//    against the C reference.
+// All by measurement on an H100 80GB HBM3 at 700 W (G = 2..32, 1, 2 and 4
+// query blocks a CUDA block, chunks of 128, 256 and 512 lanes, one and two
+// queries a thread).  Staging reads each of the three source rows with
+// coalesced loads, span by span: several spans cost one pass per span
+// instead of one, and that difference is what the probe measures.
+constexpr int SPAN_G = 8, SPAN_QPT = 2;
+constexpr int SPAN_CHUNK = 512;
+
+__device__ __forceinline__ float approx_sqrt(float x) {
+  float r;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+template <int G, int QPT>
 __global__ void span_density_kernel(const int* __restrict__ w_s,
                                     const float* __restrict__ q,
                                     const float* __restrict__ src,
-                                    float* __restrict__ out, int spans,
+                                    float* __restrict__ out, int qb, int spans,
                                     int span_cap, int W) {
-  extern __shared__ float s_lane[];  // [x | y | m], spans * span_cap each
+  __shared__ float4 s_cand[SPAN_CHUNK];  // x, y, m, 0
+  // one CUDA block per query block (t, b) = t*nqb + b: ceil(qb / QPT) groups
+  // of G threads, each with up to QPT consecutive queries (the last group of
+  // a qb that is no multiple of QPT has fewer: `has`); threads past the
+  // groups (the block is rounded up to whole warps) take part in every
+  // barrier and shuffle and touch no memory
+  const int nt = (qb + QPT - 1) / QPT * G;
+  const bool active = threadIdx.x < nt;
+  const int g = threadIdx.x % G;
+  const int u0 = threadIdx.x / G * QPT;  // first query of the group in its block
+  const int i0 = blockIdx.x * qb + u0;
+  bool has[QPT];
+  float qx[QPT], qy[QPT], acc[QPT];
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) {
+    qx[u] = qy[u] = acc[u] = 0.f;
+    has[u] = active && u0 + u < qb;
+    if (has[u]) {
+      const float2 xy = *reinterpret_cast<const float2*>(q + 8 * (size_t)(i0 + u));
+      qx[u] = xy.x;
+      qy[u] = xy.y;
+    }
+  }
+  const int* ws = w_s + (size_t)blockIdx.x * spans;
   const int n = spans * span_cap;
-  float* sx = s_lane;
-  float* sy = s_lane + n;
-  float* sm = s_lane + 2 * n;
-  const int* ws = w_s + (size_t)blockIdx.x * spans;  // block (t, b) = t*nqb + b
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const int sp = j / span_cap;
-    const int c = clamp_start(ws[sp], W, span_cap) + (j - sp * span_cap);
-    sx[j] = src[c];
-    sy[j] = src[(size_t)W + c];
-    sm[j] = src[2 * (size_t)W + c];
+  for (int c0 = 0; c0 < n; c0 += SPAN_CHUNK) {
+    const int c1 = min(n, c0 + SPAN_CHUNK);
+    __syncthreads();  // the previous chunk is consumed
+    if (active) {
+      for (int sp = c0 / span_cap; sp * span_cap < c1; ++sp) {
+        const int s0 = sp * span_cap;  // lane t of span sp is column col0 + t
+        const int col0 = clamp_start(ws[sp], W, span_cap) - s0;
+        const int hi = min(c1, s0 + span_cap);
+        for (int t = max(c0, s0) + threadIdx.x; t < hi; t += nt) {
+          const float* p = src + col0 + t;
+          s_cand[t - c0] = make_float4(p[0], p[W], p[2 * (size_t)W], 0.f);
+        }
+      }
+    }
+    __syncthreads();
+    const int m = active ? c1 - c0 : 0;
+    for (int j = g; j < m; j += G) {
+      const float4 c = s_cand[j];
+#pragma unroll
+      for (int u = 0; u < QPT; ++u) {
+        const float dx = qx[u] - c.x;
+        const float dy = qy[u] - c.y;
+        const float r = approx_sqrt(dx * dx + dy * dy);
+        const float t1 = max0(1.f - r);
+        const float t1sq = t1 * t1;
+        acc[u] += (c.z * (t1sq * t1sq)) * (1.f + r);
+      }
+    }
   }
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const float qx = q[8 * (size_t)i];
-  const float qy = q[8 * (size_t)i + 1];
-  float acc = 0.f;
-  for (int j = lane; j < n; j += 32) {
-    const float dx = qx - sx[j];
-    const float dy = qy - sy[j];
-    const float r = sqrtf(dx * dx + dy * dy);
-    const float t1 = max0(1.f - r);
-    const float t1sq = t1 * t1;
-    acc += (sm[j] * (t1sq * t1sq)) * (1.f + r);
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) {
+    acc[u] = group_sum<G>(acc[u]);
+    if (has[u] && g == 0) out[i0 + u] = acc[u];
   }
-  acc = warp_sum(acc);
-  if (lane == 0) out[i] = acc;
 }
 
 }  // namespace
@@ -145,12 +204,14 @@ int window_copy(const void* starts, const void* src, void* out, int n_windows,
 int span_density(const void* w_s, const void* q, const void* src, void* out,
                  int n_blocks, int qb, int spans, int span_cap, int W,
                  void* stream) {
+  constexpr int G = SPAN_G, QPT = SPAN_QPT;
+  const int threads = ((qb + QPT - 1) / QPT * G + 31) / 32 * 32;
+  if (qb < 1 || threads > 1024 || spans < 1 || span_cap < 1)
+    return (int)cudaErrorInvalidConfiguration;
   if (n_blocks > 0) {
-    span_density_kernel<<<n_blocks, 32 * qb,
-                          3 * spans * span_cap * sizeof(float),
-                          (cudaStream_t)stream>>>(
-        (const int*)w_s, (const float*)q, (const float*)src, (float*)out, spans,
-        span_cap, W);
+    span_density_kernel<G, QPT><<<n_blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int*)w_s, (const float*)q, (const float*)src, (float*)out, qb,
+        spans, span_cap, W);
   }
   return (int)cudaGetLastError();
 }

@@ -54,8 +54,16 @@
 // is ~20 machine operations and the same split made it slower (measured on
 // an H100), so it computes every lane.
 //
-// The field kernel reads one contiguous window [w_start, w_start + w_len) of
-// a gathered (L, 4) candidate array per block, one warp per pixel.
+// The field kernel reads the fluid half of a pixel block's spans from the
+// packed state too (boundary lanes add nothing to the field), and resolves
+// them itself: a block's static index pairs into the relayout's per-cell
+// start grid give each span's start and end, so a frame prepares nothing.
+// Same mapping with its own constants: a pixel block is qb = 8 queries and a
+// 64x128 raster has only 1,024 of them for 132 SMs, so a pixel gets a larger
+// group (16 threads, one pixel block of 128 threads a CUDA block) and the
+// staged chunk is 512 lanes: the fastest of G = 4..32, NQB = 1..4 and chunks
+// of 256 and 512 at 64x128 on the 100k and the 1M pool; at 256x128 (4,096
+// pixel blocks) G = 4 or 8 is a tenth faster at 100k and no faster at 1M.
 //
 // Pad queries (m = 0) produce 0/0 and inf lanes; their outputs are replaced by
 // a conditional select, never multiplied by a mask.
@@ -64,10 +72,12 @@
 #include <stddef.h>
 #include <stdint.h>
 
-// Thread mapping of the density and forces kernels (see "Threads" above), set
-// by measurement on an H100 80GB HBM3 at 700 W; no caller's parameter.
+// Thread mapping of the three kernels (see "Threads" above), set by
+// measurement on an H100 80GB HBM3 at 700 W; no caller's parameter.
 constexpr int DENSITY_G = 2, DENSITY_NQB = 2;
 constexpr int FORCES_G = 4, FORCES_NQB = 2;
+constexpr int FIELD_G = 16, FIELD_NQB = 1;
+constexpr int FIELD_CHUNK = 512;  // lanes the field kernel stages at once
 
 namespace {
 
@@ -76,28 +86,12 @@ namespace {
 __device__ __forceinline__ float max0(float a) { return a < 0.f ? 0.f : a; }
 __device__ __forceinline__ float min0(float a) { return a > 0.f ? 0.f : a; }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // Sum over an aligned group of G lanes of a warp; every lane of the warp calls.
 template <int G>
 __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
   for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// The block's window, clamped to the candidate array: [start, start + n).
-__device__ __forceinline__ int window(const int* w_start, const int* w_len,
-                                      int cap, int L, int* start) {
-  int s = w_start[blockIdx.x];
-  int len = min(w_len[blockIdx.x], cap);
-  s = max(0, min(s, L));
-  *start = s;
-  return max(0, min(len, L - s));
 }
 
 // r^2 past which a lane's support clamp max(1 - r/2H, 0) is exactly 0: the
@@ -129,6 +123,24 @@ __device__ __forceinline__ void load_spans(const int2* __restrict__ spans_b,
     const int st = max(0, min(s.x, n_src));
     t.start[k] = st;
     t.len[k] = max(0, min(s.y, n_src - st));
+  }
+}
+
+// The same for a pixel block, whose spans are all fluid and are given as
+// index pairs [i_lo, i_hi] into the start grid: span k is source rows
+// [grid[i_lo], grid[i_hi]).  The indices are clamped into the grid and the
+// span into the source, so neither a table nor a grid of garbage reads
+// outside an array.
+__device__ __forceinline__ void load_grid_spans(
+    const int2* __restrict__ idx_b, int ns, const int* __restrict__ grid,
+    int n_grid, int n_src, int tl, int nt, SpanTable& t) {
+  for (int k = tl; k < ns; k += nt) {
+    const int2 ix = idx_b[k];
+    const int s = grid[max(0, min(ix.x, n_grid - 1))];
+    const long long len = (long long)grid[max(0, min(ix.y, n_grid - 1))] - s;
+    const int st = max(0, min(s, n_src));
+    t.start[k] = st;
+    t.len[k] = (int)max(0LL, min(len, (long long)(n_src - st)));
   }
 }
 
@@ -358,59 +370,75 @@ __global__ void forces_window_kernel(
   }
 }
 
-// Lanes of a pixel window staged in shared memory at once (8 KB).
-constexpr int FIELD_CHUNK = 512;
-
 // Replaces _field_kernel (pi_sph_fluid_tpu/render/metaballs_window.py:164).
 //
-// Per pixel, the unweighted metaball sum over its block's window of fluid
-// candidates [x, y, m, 0]:
+// Per pixel, the unweighted metaball sum over the fluid rows [x, y, u, v | m,
+// ...] of its block's spans:
 //   out_i = sum_j [m_j > 0] (1 - r/2H)^4_+ (1 + 2r/H)
-// The caller scales by norm / W(px/2) and thresholds at 1.  The validity gate
-// is a select, as jnp.where is in the TPU kernel: a NaN mass adds 0, a NaN
-// position propagates (0 * NaN).
+// over the first min(sum len, cap) lanes in span order.  The caller scales by
+// norm / W(px/2) and thresholds at 1.  The validity gate is a select, taken
+// once as a lane is staged: a NaN mass adds 0, a NaN position propagates
+// (0 * NaN), as jnp.where does in the TPU kernel.
 //
-// Bound on this card: bytes.  The window rows (16 B a lane, Sigma min(w_len,
-// cap) lanes over the blocks, fewer distinct rows where windows overlap) plus
-// 12 B a pixel: its x and y (the float4 load below reads 16) and the output;
-// ~17 FP32 operations a pair lane against 16 B shared by the block's qb
-// pixels.  On an H100 (3.35 TB/s) that is 0.99 us for the 100k pool's 64x128
-// frame, 3.3 MB (chip_smoke.py reckons it from each run's windows).  The
-// pixel cap grows with the particle count (512 lanes on the drop, 3584 at
-// 4M), past what a block can stage statically, so the window streams through
-// one FIELD_CHUNK of shared memory: every cap launches with the same 8 KB and
-// no opt-in.
+// Bound on this card: 17 FP32 operations a pair lane over qb x fluid lanes
+// against the bytes the function needs (x, y and m, 12 B, of a distinct fluid
+// row, though the card moves the row's 32-byte sector; 12 B a pixel, the
+// index pairs and the start grid); chip_smoke.py reckons both from each
+// run's spans.  What the kernel waits for is the chain index
+// pair -> start grid -> rows -> pixel and, at 64x128, too few pixel blocks to
+// fill the card; see FIELD_G above.  The pixel cap grows with the particle
+// count (512 lanes on the drop, 3584 at 4M), so the window streams through
+// one FIELD_CHUNK of shared memory: every cap launches with the same 8 KB a
+// pixel block and no opt-in.
+template <int G, int NQB>
 __global__ void field_window_kernel(
-    const float4* __restrict__ q, const float4* __restrict__ geo,
-    const int* __restrict__ w_start, const int* __restrict__ w_len,
-    float* __restrict__ out, int cap, int L, float half_inv_h,
-    float two_inv_h) {
-  __shared__ float4 s_cand[FIELD_CHUNK];
-  int start;
-  const int n = window(w_start, w_len, cap, L, &start);
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const float4 q0 = q[2 * i];  // x, y, 0, 0
+    const float4* __restrict__ q, const float4* __restrict__ rows,
+    const int* __restrict__ grid, const int2* __restrict__ span_idx,
+    float* __restrict__ out, int n_blocks, int qb, int cap, int ns, int n_src,
+    int n_grid, float half_inv_h, float two_inv_h) {
+  __shared__ float4 s_cand[NQB][FIELD_CHUNK];  // x, y, [m > 0], 0
+  __shared__ SpanTable s_tab[NQB];
+  const Place<G, NQB> at(n_blocks, qb);
+  float2 q0 = make_float2(0.f, 0.f);
+  if (at.active) {
+    q0 = *reinterpret_cast<const float2*>(q + 2 * at.i);  // x, y
+    load_grid_spans(span_idx + (size_t)at.b * ns, ns, grid, n_grid, n_src,
+                    at.tl, at.nt, s_tab[at.lb]);
+  }
+  __syncthreads();
+  const SpanTable& tab = s_tab[at.lb];
+  float4* cand = s_cand[at.lb];
+  const int n = at.active ? span_lanes(tab, ns, cap) : 0;
   float acc = 0.f;
-  for (int c0 = 0; c0 < n; c0 += FIELD_CHUNK) {  // n is the block's: uniform
-    const int m = min(FIELD_CHUNK, n - c0);
-    __syncthreads();  // the previous chunk is consumed
-    for (int t = threadIdx.x; t < m; t += blockDim.x)
-      s_cand[t] = geo[start + c0 + t];
+  for (int c0 = 0; __syncthreads_or(c0 < n); c0 += FIELD_CHUNK) {
+    const int c1 = min(n, c0 + FIELD_CHUNK);
+    int p = 0;
+    for (int k = 0; k < ns && p < c1; ++k) {
+      const int len = tab.len[k];
+      const int hi = min(p + len, c1);
+      const int row0 = tab.start[k] - p;
+      for (int t = max(p, c0) + at.tl; t < hi; t += at.nt) {
+        const float4* r = rows + 2 * (size_t)(row0 + t);
+        const float2 xy = *reinterpret_cast<const float2*>(r);
+        const float m = *reinterpret_cast<const float*>(r + 1);
+        cand[t - c0] = make_float4(xy.x, xy.y, m > 0.f ? 1.f : 0.f, 0.f);
+      }
+      p += len;
+    }
     __syncthreads();
-    for (int j = lane; j < m; j += 32) {
-      const float4 c = s_cand[j];  // x, y, m, 0
+    const int m = c1 - c0;
+    for (int j = at.g; j < m; j += G) {
+      const float4 c = cand[j];
       const float dx = q0.x - c.x;
       const float dy = q0.y - c.y;
       const float r = sqrtf(dx * dx + dy * dy);
       const float t1 = max0(1.f - half_inv_h * r);
       const float t1sq = t1 * t1;
-      const float valid = c.z > 0.f ? 1.f : 0.f;
-      acc += (valid * (t1sq * t1sq)) * (1.f + two_inv_h * r);
+      acc += (c.z * (t1sq * t1sq)) * (1.f + two_inv_h * r);
     }
   }
-  acc = warp_sum(acc);
-  if (lane == 0) out[i] = acc;
+  acc = group_sum<G>(acc);
+  if (at.active && at.g == 0) out[at.i] = acc;
 }
 
 }  // namespace
@@ -462,13 +490,19 @@ int forces_window(const void* q, const void* geo8, const void* rp,
   return (int)cudaGetLastError();
 }
 
-int field_window(const void* q, const void* geo, const void* w_start,
-                 const void* w_len, void* out, int n_blocks, int qb, int cap,
-                 int L, float half_inv_h, float two_inv_h, void* stream) {
+int field_window(const void* q, const void* rows, const void* grid,
+                 const void* span_idx, void* out, int n_blocks, int qb,
+                 int cap, int ns, int n_src, int n_grid, float half_inv_h,
+                 float two_inv_h, void* stream) {
+  constexpr int G = FIELD_G, NQB = FIELD_NQB;
+  const int threads = span_threads(qb, G, NQB, ns);
+  if (threads == 0 || n_grid < 1) return (int)cudaErrorInvalidConfiguration;
   if (n_blocks > 0) {
-    field_window_kernel<<<n_blocks, 32 * qb, 0, (cudaStream_t)stream>>>(
-        (const float4*)q, (const float4*)geo, (const int*)w_start,
-        (const int*)w_len, (float*)out, cap, L, half_inv_h, two_inv_h);
+    field_window_kernel<G, NQB><<<(n_blocks + NQB - 1) / NQB, threads, 0,
+                                  (cudaStream_t)stream>>>(
+        (const float4*)q, (const float4*)rows, (const int*)grid,
+        (const int2*)span_idx, (float*)out, n_blocks, qb, cap, ns, n_src,
+        n_grid, half_inv_h, two_inv_h);
   }
   return (int)cudaGetLastError();
 }

@@ -34,8 +34,9 @@ import torch
 from ..config import SPHConfig
 from ..core.kernels import div_scalar
 from ..ops.grid import GridContext, cell_ids, csr_starts
-from ..ops.window.triple import (INERT_X, TripleCtx, TripleSpec, block_spans,
-                                 block_windows, build_frame, triple_spec)
+from ..ops.window.triple import (INERT_X, Frame, TripleCtx, TripleSpec,
+                                 block_spans, block_windows, build_frame,
+                                 start_grid, triple_spec)
 from ..ops.window.window_kernels import density_window, forces_window
 from ..state import BoundaryState, FluidState
 from .simulation import StepStats, host_gravity
@@ -78,6 +79,7 @@ class WindowEngine:
         dev = self.device
         self.boundary = BoundaryState(*(f.to(dev) for f in boundary))
         self.b_cell_starts = boundary_grid.cell_starts.to(dev, _I32)
+        self._b_grid = start_grid(cfg, self.b_cell_starts)
         b = self.boundary
         zb = torch.zeros_like(b.x)
         # static boundary candidate rows (`engine_v3.py:102-118`): force
@@ -105,7 +107,7 @@ class WindowEngine:
                            torch.full_like(m, cfg.n_cells, dtype=_I32))
         order = torch.argsort(keys, stable=True)
         cell_starts = csr_starts(keys, cfg.n_cells + 2)
-        layout_src, trip_src, T, row_shift = build_frame(
+        layout_src, T, row_shift = build_frame(
             spec, cfg, cell_starts, self.b_cell_starts)
         packed_sorted = torch.cat([packed[order], self._inert_row])
         packed_new = packed_sorted[layout_src.long()]
@@ -113,9 +115,9 @@ class WindowEngine:
         cells = torch.where(live, cell_ids(packed_new[:, 0], packed_new[:, 1], cfg),
                             torch.full_like(live, cfg.n_cells, dtype=_I32))
         w_start, w_len, flen, overflow = block_windows(spec, cfg, cells, T)
-        spans = block_spans(spec, cfg, cells, cell_starts, self.b_cell_starts,
-                            row_shift)
-        ctx = TripleCtx(layout_src=layout_src, trip_src=trip_src,
+        f_grid = start_grid(cfg, cell_starts, row_shift)
+        spans = block_spans(spec, cfg, cells, f_grid, self._b_grid)
+        ctx = TripleCtx(layout_src=layout_src, start_grid=f_grid,
                         w_start=w_start, w_len=w_len, flen=flen, T=T,
                         overflow=overflow, spans=spans)
         return packed_new, ctx, overflow
@@ -193,16 +195,17 @@ class WindowEngine:
         carried ticks report zeros except the last, which reports the group
         maxima of per-particle running rho and speed^2 maxima.
 
-        ``return_frame=True`` also returns the last relayout's frame
-        ``(trip_src, T)`` for render/metaballs_window.WindowRenderer
-        .render_from_frame: ``(sim, stats, frame)``.  The frame is
-        ``resort_every - 1`` ticks stale against the returned state, the
+        ``return_frame=True`` also returns the last relayout's ``Frame``
+        (its start grid and T) for render/metaballs_window.WindowRenderer
+        .render_from_frame: ``(sim, stats, frame)``.  The renderer reads the
+        returned state's rows through the frame's spans, as the physics
+        does; they are ``resort_every - 1`` ticks stale against it, the
         fringe bound the physics runs under (`engine_v3.py:352-357`)."""
         damp = float(damping)
 
         def finish(sim, stats, ctx):
             out = (sim, _stack(stats))
-            return out + ((ctx.trip_src, ctx.T),) if return_frame else out
+            return out + (Frame(ctx.start_grid, ctx.T),) if return_frame else out
 
         if resort_every <= 1:
             def multi_step(sim: PackedSim, g_trace):

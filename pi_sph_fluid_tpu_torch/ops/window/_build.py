@@ -31,7 +31,7 @@ SOURCES = {
     "window_kernels": (_PKG / "csrc" / "window_kernels.cu", {
         "density_window": [_P] * 5 + [_I] * 6 + [_F] * 5 + [_P],
         "forces_window": [_P] * 7 + [_I] * 6 + [_F] * 10 + [_P],
-        "field_window": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
+        "field_window": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_P],
     }),
     "probe_kernels": (_PKG / "csrc" / "probe_kernels.cu", {
         "window_copy": [_P] * 3 + [_I] * 5 + [_P],

@@ -24,8 +24,13 @@ of its segment, one contiguous run of layout-order fluid rows and one
 contiguous run of the static boundary rows: ``block_spans`` returns these
 ``2 * (seg_q + 2)`` [start, len] spans per block, the same lanes as the
 window in row-major instead of column-major order, and the kernels read
-them straight from the state.  ``trip_src`` (the gather map of the (L, k)
-candidate array) is still built for the renderer's frame.
+them straight from the state.  The renderer's field kernel reads the fluid
+half of the same spans for its pixel blocks, resolving them itself from the
+relayout's per-cell start grid (``start_grid``) through static per-block
+index pairs (``span_index``): the engine hands it a ``Frame``.  So the JAX
+layout's gather map of the (L, k) candidate array (``trip_src``, its run
+table, an (L,) scatter-max and cummax) is not built at all; L only sizes
+the budget guard of ``T``.
 
 Every index the JAX code let XLA clamp is in range by construction here
 (noted at each gather), and the two ``.at[].max(mode="drop")`` scatters
@@ -41,8 +46,9 @@ import torch
 
 from ...config import SPHConfig
 
-__all__ = ["TripleSpec", "TripleCtx", "triple_spec", "build_frame",
-           "block_windows", "block_spans", "INERT_X", "LANE"]
+__all__ = ["TripleSpec", "TripleCtx", "Frame", "triple_spec", "build_frame",
+           "block_windows", "block_spans", "span_index", "start_grid",
+           "INERT_X", "LANE"]
 
 LANE = 128      # segment strides round to this, as in the JAX layout
 INERT_X = -1e6  # inert slots sit far outside the domain -> q >= 2 kills them
@@ -62,9 +68,7 @@ class TripleSpec(NamedTuple):
     cap: int         # candidate lanes computed per block window
     seg_q: int       # query rows per candidate segment
     n_layout: int    # query-layout length (multiple of tq)
-    L: int           # candidate-array length
-    n_src: int       # gather-source rows: n_layout + nb + 1 (inert)
-    n_runs: int      # run-table length
+    L: int           # candidate-lane budget (the JAX candidate array's length)
 
     @property
     def nqb(self) -> int:
@@ -86,7 +90,8 @@ class TripleCtx(NamedTuple):
 
     layout_src: (n_layout,) int32 row of the sorted + inert-extended source
                 feeding each layout slot
-    trip_src:   (L,) int32 gather-source row feeding each candidate slot
+    start_grid: (n_rows * (m + 1),) int32 layout row at which each fluid
+                cell starts (``start_grid``), the renderer's frame input
     w_start:    (n_tiles, nqb) int32 per-block window starts
     w_len:      (n_tiles, nqb) int32 window lengths
     flen:       (n_tiles, nqb) int32 fetch lengths (== w_len, exact start)
@@ -100,13 +105,30 @@ class TripleCtx(NamedTuple):
     """
 
     layout_src: torch.Tensor
-    trip_src: torch.Tensor
+    start_grid: torch.Tensor
     w_start: torch.Tensor
     w_len: torch.Tensor
     flen: torch.Tensor
     T: torch.Tensor
     overflow: torch.Tensor
     spans: torch.Tensor
+
+
+class Frame(NamedTuple):
+    """What a renderer needs of a relayout to draw from the packed state
+    without a sort of its own (``make_multi_step(return_frame=True)``).
+
+    start_grid: (n_rows * (m + 1),) int32, ``start_grid`` of the relayout:
+                entry r * (m + 1) + c is the row of the packed state at which
+                fluid cell (r, c) starts, entry r * (m + 1) + m the end of
+                grid row r.  Rows of whatever array the renderer is given,
+                so a part of a domain can hand over its own.
+    T:          (n_cells+1, 8) int32, ``TripleCtx.T``: the pixel windows'
+                lengths (fluid and boundary lanes) for the overflow count
+    """
+
+    start_grid: torch.Tensor
+    T: torch.Tensor
 
 
 def triple_spec(cfg: SPHConfig, n_real: int, nb: int, tq: int = 256,
@@ -117,12 +139,9 @@ def triple_spec(cfg: SPHConfig, n_real: int, nb: int, tq: int = 256,
     n_rows = cfg.n_cell_rows
     n_seg = -(-n_rows // seg_q)
     n_layout = _round_up(n_real + qb * n_rows, tq)
-    cover = seg_q + 2
     copies = 3 if seg_q == 1 else 2
     L = _round_up(copies * (n_real + nb) + n_seg * (cap + 3 * LANE) + 2 * LANE, LANE)
-    n_runs = n_seg * (cfg.n_cell_cols * cover * 2 + 1)
-    return TripleSpec(tq=tq, qb=qb, cap=cap, seg_q=seg_q, n_layout=n_layout,
-                      L=L, n_src=n_layout + nb + 1, n_runs=n_runs)
+    return TripleSpec(tq=tq, qb=qb, cap=cap, seg_q=seg_q, n_layout=n_layout, L=L)
 
 
 def _scatter_max_cummax(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -140,19 +159,19 @@ def _cumsum(a: torch.Tensor, dim: int) -> torch.Tensor:
 
 def build_frame(spec: TripleSpec, cfg: SPHConfig, cell_starts: torch.Tensor,
                 b_cell_starts: torch.Tensor):
-    """Query layout and candidate construction from the CSRs alone
-    (`triple.py:261-379`).  ``cell_starts`` (n_cells+2,) is the fluid CSR
+    """Query layout and per-cell window table from the CSRs alone
+    (`triple.py:261-338`; the run table and the gather map that follow
+    there are not built).  ``cell_starts`` (n_cells+2,) is the fluid CSR
     over sorted slots, ``b_cell_starts`` (n_cells+1,) the static boundary
-    CSR.  Returns (layout_src, trip_src, T, row_shift); ``row_shift``
-    (n_rows,) int32 is, per grid row, the layout slot less the sorted slot
-    of the row's first particle, which ``block_spans`` needs."""
+    CSR.  Returns (layout_src, T, row_shift); ``row_shift`` (n_rows,) int32
+    is, per grid row, the layout slot less the sorted slot of the row's
+    first particle, which ``start_grid`` needs."""
     dev = cell_starts.device
     m = cfg.n_cell_cols
     n_rows = cfg.n_cell_rows
     n_cells = cfg.n_cells
     cap, seg_q = spec.cap, spec.seg_q
     n_seg = -(-n_rows // seg_q)
-    cover = seg_q + 2
     ar = lambda n: torch.arange(n, dtype=_I32, device=dev)  # noqa: E731
 
     # ---- per-cell count grids ---------------------------------------------
@@ -199,35 +218,7 @@ def build_frame(spec: TripleSpec, cfg: SPHConfig, cell_starts: torch.Tensor,
     # L-budget guard (`triple.py:330-338`): the excess rides in T[n_cells, 2]
     total_len = seg_start[-1] + seg_stride[-1]
     T[n_cells, 2] = torch.clamp_min(total_len - spec.L, 0)
-
-    # ---- run table: trip_src via scatter-max + cummax + one gather ---------
-    j_ids = torch.arange(cover * 2, device=dev)
-    rt2 = lo_row[:, None] + (j_ids // 2)[None, :]           # (n_seg, cover*2)
-    rt2_ok = rt2 <= hi_row[:, None]
-    rt2_c = torch.clamp_max(rt2, n_rows - 1)
-    is_b2 = ((j_ids % 2) == 1)[None, :, None]
-    cs_grid = cell_starts[:n_cells].reshape(n_rows, m)
-    bcs_grid = b_cell_starts[:n_cells].reshape(n_rows, m)
-    lens3 = torch.where(rt2_ok[:, :, None],
-                        torch.where(is_b2, bcnt[rt2_c], fcnt[rt2_c]),
-                        torch.zeros((), dtype=_I32, device=dev))
-    src0_f3 = row_shift[rt2_c][:, :, None] + cs_grid[rt2_c]
-    src0_b3 = spec.n_layout + bcs_grid[rt2_c]
-    src03 = torch.where(is_b2, src0_b3, src0_f3)
-    lens = lens3.transpose(1, 2)                            # (n_seg, m, cover*2)
-    src0 = src03.transpose(1, 2)
-    pref = _cumsum(lens, 2) - lens
-    slot0 = tcol_start[:, :, None] + pref
-    far = torch.full_like(slot0, 1 << 29)                   # empty: inert via clamp
-    delta = torch.where(lens > 0, src0 - slot0, far)
-    pad_slot0 = (seg_start + seg_len)[:, None]
-    pad_delta = torch.full((n_seg, 1), 1 << 29, dtype=_I32, device=dev)
-    slot0 = torch.cat([slot0.reshape(n_seg, -1), pad_slot0], 1).reshape(-1)
-    delta = torch.cat([delta.reshape(n_seg, -1), pad_delta], 1).reshape(-1)
-
-    run_of = _scatter_max_cummax(spec.L, slot0, ar(spec.n_runs)).long()
-    trip_src = torch.clamp_max(ar(spec.L) + delta[run_of], spec.n_src - 1)
-    return layout_src, trip_src, T, row_shift
+    return layout_src, T, row_shift
 
 
 def _block_cells(spec: TripleSpec, cfg: SPHConfig, cells: torch.Tensor):
@@ -266,12 +257,12 @@ def block_windows(spec: TripleSpec, cfg: SPHConfig, cells: torch.Tensor,
 
 @functools.lru_cache(maxsize=8)
 def _span_tables(cfg: SPHConfig, seg_q: int, device: torch.device):
-    """Static per-cell tables of ``block_spans`` for a block whose first
+    """Static per-cell tables of ``span_index`` for a block whose first
     valid query lies in cell c (row r = c // m) and whose last in cell c':
     ``i_lo[c]`` / ``i_hi[c']`` (n_cells + 1, cover) index, for each grid row
     rr of r's segment, the entries (rr, c_lo) and (rr, c_hi + 1) of an
-    (n_rows, m + 1) per-row CSR grid, c_lo = max(col - 1, 0), c_hi + 1 =
-    min(col' + 2, m); ``ok[c]`` (n_cells + 1, 2 * cover) is 1 where rr is a
+    (n_rows, m + 1) start grid, c_lo = max(col - 1, 0), c_hi + 1 =
+    min(col' + 2, m); ``ok[c]`` (n_cells + 1, cover) says whether rr is a
     row of the segment.  Entry n_cells (a block without queries) is all 0."""
     m, n_rows, n_cells = cfg.n_cell_cols, cfg.n_cell_rows, cfg.n_cells
     cover = seg_q + 2
@@ -280,50 +271,71 @@ def _span_tables(cfg: SPHConfig, seg_q: int, device: torch.device):
     base = row // seg_q * seg_q
     rr = torch.clamp_min(base - 1, 0)[:, None] + torch.arange(
         cover, dtype=_I32, device=device)[None, :]
-    ok = (rr <= torch.clamp_max(base + seg_q, n_rows - 1)[:, None]).to(_I32)
+    ok = rr <= torch.clamp_max(base + seg_q, n_rows - 1)[:, None]
     at = torch.clamp_max(rr, n_rows - 1) * (m + 1)
     i_lo = at + torch.clamp_min(col - 1, 0)[:, None]
     i_hi = at + torch.clamp_max(col + 2, m)[:, None]
     pad = lambda t: torch.cat([t, torch.zeros_like(t[:1])])  # noqa: E731
-    return pad(i_lo), pad(i_hi), pad(torch.cat([ok, ok], 1))
+    return pad(i_lo), pad(i_hi), pad(ok)
+
+
+def span_index(cfg: SPHConfig, seg_q: int, c_first: torch.Tensor,
+               c_last: torch.Tensor, has_q: torch.Tensor) -> torch.Tensor:
+    """(blocks, cover, 2) int32 [i_lo, i_hi], cover = seg_q + 2: where, in a
+    start grid (``start_grid``), each span of a block begins and ends.  The
+    block's queries lie in one grid row, the first valid one in cell
+    ``c_first`` and the last in ``c_last`` (``has_q`` false: no query, and
+    the cells are ignored).  Its window is the columns [c_first - 1,
+    c_last + 1] (clamped to the grid) over every grid row rr of its
+    segment, so for a grid g span k is rows [g[i_lo[k]], g[i_hi[k]]).  A
+    span past the segment's last row, and every span of a block without
+    queries, has i_hi = i_lo: length 0.  Static wherever the blocks' cells
+    are (the renderer's pixel blocks); the engine's follow its relayout."""
+    i_lo, i_hi, ok = _span_tables(cfg, seg_q, c_first.device)
+    none = torch.full_like(c_first, cfg.n_cells)
+    first = torch.where(has_q, c_first, none)
+    lo = i_lo[first]                                        # (blocks, cover)
+    hi = torch.where(ok[first], i_hi[torch.where(has_q, c_last, none)], lo)
+    return torch.stack([lo, hi], 2)
+
+
+def start_grid(cfg: SPHConfig, cell_starts: torch.Tensor,
+               row_shift: torch.Tensor | None = None) -> torch.Tensor:
+    """(n_rows * (m + 1),) int32 view of a CSR over cells as per-row starts:
+    entry r * (m + 1) + c is the start of cell (r, c), entry r * (m + 1) + m
+    the end of grid row r; ``cell_starts`` must reach index n_cells.  With
+    ``row_shift`` (``build_frame``'s) the fluid CSR over sorted slots turns
+    into rows of the query layout, where grid row r is contiguous and
+    column-sorted: cell (r, c) starts at layout row
+    ``row_shift[r] + cell_starts[r * m + c]``."""
+    m, n_rows = cfg.n_cell_cols, cfg.n_cell_rows
+    grid = cell_starts.as_strided((n_rows, m + 1), (m, 1))
+    if row_shift is not None:
+        grid = row_shift[:, None] + grid
+    return grid.reshape(-1)
 
 
 def block_spans(spec: TripleSpec, cfg: SPHConfig, cells: torch.Tensor,
-                cell_starts: torch.Tensor, b_cell_starts: torch.Tensor,
-                row_shift: torch.Tensor):
+                f_grid: torch.Tensor, b_grid: torch.Tensor) -> torch.Tensor:
     """Per-block span table (n_tiles * nqb, n_spans, 2) int32 [start, len]:
     the lanes of the block's window (``block_windows``) as contiguous runs
     of the arrays they come from, so that no candidate array has to be
-    gathered.  ``row_shift`` is ``build_frame``'s.
+    gathered.  ``cells`` are the layout-order cell ids, ``f_grid`` the
+    relayout's fluid start grid (``start_grid`` with ``build_frame``'s
+    row_shift) and ``b_grid`` the boundary CSR's (static).
 
-    The window is the segment's columns [c_lo, c_hi] = [c_first - 1,
-    c_last + 1] (clamped to the grid) over every grid row rr of the block's
-    segment.  In the query layout grid row rr is contiguous and
-    column-sorted, fluid cell (rr, c) starting at layout row
-    ``f(rr, c) = row_shift[rr] + cell_starts[rr*m + c]``, and the boundary is
-    sorted by cell, so per segment row the lanes are
+    Per segment row rr (``span_index``) the lanes are
 
     * spans [0, cover):        layout rows [f(rr, c_lo), f(rr, c_hi + 1)),
     * spans [cover, 2*cover):  boundary rows
                                [b_cell_starts[rr*m + c_lo],
                                 b_cell_starts[rr*m + c_hi + 1]),
 
-    with cover = seg_q + 2; rows past the segment's last, and every span of
-    a block without queries, have length 0.  The lengths sum to ``w_len``
-    and the rows are those of ``trip_src[w_start : w_start + w_len]``, in
+    with cover = seg_q + 2.  The lengths sum to ``w_len`` and the rows are
+    those of the JAX layout's ``trip_src[w_start : w_start + w_len]``, in
     row-major instead of column-major order."""
-    m, n_rows, n_cells = cfg.n_cell_cols, cfg.n_cell_rows, cfg.n_cells
-    i_lo, i_hi, ok = _span_tables(cfg, spec.seg_q, cells.device)
-    c_first, c_last, has_q = _block_cells(spec, cfg, cells)
-    none = torch.full_like(c_first, n_cells)
-    first = torch.where(has_q, c_first, none)
-    i_lo, ok = i_lo[first], ok[first]                       # (blocks, cover)
-    i_hi = i_hi[torch.where(has_q, c_last, none)]
-    # (n_rows, m + 1) views of the CSRs: entry (r, c) is the start of cell
-    # (r, c), entry (r, m) the end of row r; both CSRs reach index n_cells
-    grid = lambda t: t.as_strided((n_rows, m + 1), (m, 1))  # noqa: E731
-    f = (row_shift[:, None] + grid(cell_starts)).reshape(-1)
-    b = grid(b_cell_starts).reshape(-1)
-    start = torch.cat([f[i_lo], b[i_lo]], 1)
-    end = torch.cat([f[i_hi], b[i_hi]], 1)
-    return torch.stack([start, (end - start) * ok], 2)
+    idx = span_index(cfg, spec.seg_q, *_block_cells(spec, cfg, cells))
+    lo, hi = idx[:, :, 0], idx[:, :, 1]
+    start = torch.cat([f_grid[lo], b_grid[lo]], 1)
+    end = torch.cat([f_grid[hi], b_grid[hi]], 1)
+    return torch.stack([start, end - start], 2)

@@ -35,6 +35,11 @@ wrapper's ``launches`` counts kernel launches and nothing else.  The
 float32 constants of a pass are computed once per config, and a launch
 spends its host time on the checks, two allocations and the call.
 
+The renderer's field kernel (render/metaballs_window.py) shares the launch
+path, the checks and the lane table of this module; it reads the fluid
+half of its blocks' spans and resolves them itself from a start grid
+(``_grid_spans``).
+
 The plain versions compute the same lanes as the kernels over an explicit
 (blocks, qb, lanes) array, in chunks of blocks so that they also run at 1M
 particles on the card.  Lanes past the window, which the TPU kernels
@@ -107,18 +112,25 @@ def _check(name, t, shape, dtype, device):
                          f"expected contiguous {dtype} {tuple(shape)} on {device}")
 
 
-def _check_windows(spec: TripleSpec, q_packed, geo, k, w_start, w_len):
-    """The arguments of a kernel that reads one contiguous window per block
-    of a gathered (L, k) candidate array (the renderer's field kernel)."""
+def _check_grid_spans(spec: TripleSpec, q_packed, rows, grid, span_idx):
+    """The arguments of a kernel that resolves its blocks' fluid spans
+    itself (the renderer's field kernel): queries, the (n, 8) source rows,
+    the start grid and the blocks' index pairs into it.  Returns the
+    device."""
     dev = q_packed.device
     _check("q_packed", q_packed, (spec.n_layout, 8), torch.float32, dev)
-    if geo.dim() != 2 or geo.shape[1] != k:
-        raise ValueError(f"candidates must be (L, {k}), got {tuple(geo.shape)}")
-    _check("candidates", geo, geo.shape, torch.float32, dev)
-    _check("w_start", w_start, (spec.n_tiles, spec.nqb), torch.int32, dev)
-    _check("w_len", w_len, (spec.n_tiles, spec.nqb), torch.int32, dev)
-    if dev.type == "cuda" and not 1 <= spec.qb <= 32:
-        raise ValueError(f"qb={spec.qb}: one warp per query needs 1 <= qb <= 32")
+    if rows.dim() != 2:
+        raise ValueError(f"source rows must be (n, 8), got {tuple(rows.shape)}")
+    _check("source rows", rows, (rows.shape[0], 8), torch.float32, dev)
+    if grid.dim() != 1 or grid.shape[0] < 1:
+        raise ValueError(f"start grid must be (n >= 1,), got {tuple(grid.shape)}")
+    _check("start grid", grid, grid.shape, torch.int32, dev)
+    _check("span_idx", span_idx, (spec.n_layout // spec.qb, spec.seg_q + 2, 2),
+           torch.int32, dev)
+    if not (1 <= spec.qb <= 32 and spec.n_spans <= MAX_SPANS):
+        raise ValueError(f"qb={spec.qb} must be 1..32 and n_spans="
+                         f"{spec.n_spans} at most {MAX_SPANS}")
+    return dev
 
 
 def _check_spans(spec: TripleSpec, q_packed, b_geo, k, spans):
@@ -136,18 +148,20 @@ def _check_spans(spec: TripleSpec, q_packed, b_geo, k, spans):
     return dev
 
 
-def _windows(w_start, w_len, b0, b1, cap, L):
-    """(nb, <= cap) candidate rows and lane validity for blocks [b0, b1): the
-    field kernel's clamped window [start, start + min(len, cap)) within
-    [0, L)."""
-    ws = w_start.reshape(-1)[b0:b1].clamp(0, L)
-    wl = torch.clamp_max(torch.minimum(w_len.reshape(-1)[b0:b1].clamp_min(0),
-                                       L - ws), cap)
+def _lanes(start, length, cap):
+    """(nb, <= cap) source rows and lane validity from (nb, ns) clamped span
+    starts and lengths: a block's spans laid end to end, its first min(sum
+    of lengths, cap) lanes."""
+    nb, ns = start.shape
+    pref = torch.cumsum(length, 1)                          # inclusive
+    total = pref[:, -1].clamp_max(cap)
     # lanes past the chunk's longest window are all invalid: skip them
-    width = max(int(wl.max()), 1)
-    lane = torch.arange(width, dtype=torch.int32, device=ws.device)
-    valid = lane[None, :] < wl[:, None]
-    idx = torch.clamp_max(ws[:, None] + lane[None, :], L - 1).long()
+    width = max(int(total.max()), 1)
+    lane = torch.arange(width, device=start.device)[None, :].expand(nb, width)
+    k = torch.searchsorted(pref, lane.contiguous(), right=True).clamp_max(ns - 1)
+    row0 = start - (pref - length)
+    valid = lane < total[:, None]
+    idx = torch.where(valid, row0.gather(1, k) + lane, 0)
     return idx, valid
 
 
@@ -158,21 +172,25 @@ def _span_lanes(spans, b0, b1, cap, n_fluid, n_bnd):
     each is clamped into its array as the kernels clamp it, and a block
     computes its first min(sum of lengths, cap) lanes."""
     sp = spans[b0:b1].long()
-    nb, ns = sp.shape[0], sp.shape[1]
+    ns = sp.shape[1]
     fluid = torch.arange(ns, device=sp.device) < ns // 2
     n_src = torch.where(fluid, n_fluid, n_bnd)
     start = torch.minimum(sp[..., 0].clamp_min(0), n_src)
     length = torch.minimum(sp[..., 1].clamp_min(0), n_src - start)
-    pref = torch.cumsum(length, 1)                          # inclusive
-    total = pref[:, -1].clamp_max(cap)
-    # lanes past the chunk's longest window are all invalid: skip them
-    width = max(int(total.max()), 1)
-    lane = torch.arange(width, device=sp.device)[None, :].expand(nb, width)
-    k = torch.searchsorted(pref, lane.contiguous(), right=True).clamp_max(ns - 1)
-    row0 = start + torch.where(fluid, 0, n_fluid) - (pref - length)
-    valid = lane < total[:, None]
-    idx = torch.where(valid, row0.gather(1, k) + lane, 0)
-    return idx, valid
+    return _lanes(start + torch.where(fluid, 0, n_fluid), length, cap)
+
+
+def _grid_spans(span_idx, grid, n_src):
+    """(start, length), each (blocks, ns) int64, of the spans a kernel
+    resolves itself (the field kernel): span k of a block is source rows
+    [grid[i_lo], grid[i_hi]) for its index pair ``span_idx[b, k]``, the
+    indices clamped into the grid and the span into [0, n_src) as the
+    kernel clamps them."""
+    ix = span_idx.long().clamp(0, grid.shape[0] - 1)
+    g = grid.long()
+    s = g[ix[..., 0]]
+    start = s.clamp(0, n_src)
+    return start, torch.minimum((g[ix[..., 1]] - s).clamp_min(0), n_src - start)
 
 
 def _chunk(spec: TripleSpec) -> int:

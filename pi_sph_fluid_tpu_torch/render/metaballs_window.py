@@ -2,20 +2,31 @@
 `pi_sph_fluid_tpu/render/metaballs_window.py:45-372`).
 
 Same math as render/metaballs.py (field = sum_j W_ij / W(px_width/2), lit
-when >= 1, `pi_sph_fluid.c:380-411`) over the row-triple candidate layout:
-pixel centers are static queries (the reference's pixels-as-particles
-trick, `pi_sph_fluid.c:570-577`), laid out once into qb-quantised grid-row
-blocks, and the field kernel sums unweighted Wendland terms per pixel over
-its block's one contiguous window of fluid candidates.
+when >= 1, `pi_sph_fluid.c:380-411`) over the row-triple layout: pixel
+centers are static queries (the reference's pixels-as-particles trick,
+`pi_sph_fluid.c:570-577`), laid out once into qb-quantised grid-row blocks,
+and the field kernel sums unweighted Wendland terms per pixel over its
+block's window of fluid candidates.
 
-* ``field`` re-lays-out the fluid from live positions (exact for any state);
-* ``field_from_frame`` reuses the engine's last relayout (trip_src, T from
-  ``WindowEngine.make_multi_step(return_frame=True)``): no sort per frame.
+The window is read as spans straight from the (n, 8) packed rows: for each
+grid row of the block's segment, the cells [c_first - 1, c_last + 1] are one
+run of rows.  A pixel block's cells never change, so its index pairs into a
+per-cell start grid (ops/window/triple.py::span_index) are built once per
+renderer, and a frame needs only the start grid of the rows it draws from:
 
-Windows are exact-start (``w_start = T[c_first, 0]``), as the engine's are;
-the TPU renderer's dual 64-shifted planes and banded gather stay behind.
-Window overflow (lanes beyond the pixel cap, plus x1e6 for an L-budget
-overrun) is counted and returned with every frame, never silent.
+* ``field`` sorts the fluid from live positions (exact for any state): one
+  argsort, one CSR, the rows in sorted order, the CSR as the start grid;
+* ``field_from_frame`` takes the ``Frame`` of
+  ``WindowEngine.make_multi_step(return_frame=True)``, the engine's last
+  relayout: no sort and no other preparation per frame.  Under a sticky
+  layout the spans are the relayout's and the rows the tick's.
+
+Boundary lanes add nothing to the field, so the kernel reads none; window
+overflow still counts the whole window (fluid and boundary lanes of
+``T[c_last, 1] - T[c_first, 0]``) beyond the pixel cap, plus x1e6 for an
+L-budget overrun, as the JAX renderer does, and is returned with every
+frame, never silent.  Up to the cap no lane is cut; past it the kernel
+keeps the first cap fluid lanes in span order.
 
 ``field_window`` launches the CUDA kernel (csrc/window_kernels.cu) on CUDA
 tensors and runs ``field_window_plain`` on CPU tensors; its ``launches``
@@ -30,9 +41,11 @@ import torch
 from ..config import SPHConfig
 from ..models.scene import pixel_centers
 from ..ops.grid import cell_ids, csr_starts
-from ..ops.window.triple import LANE, TripleSpec, build_frame, triple_spec
-from ..ops.window.window_kernels import (_check_windows, _chunk, _launch,
-                                         _windows, _zero, density_consts)
+from ..ops.window.triple import (LANE, Frame, TripleSpec, span_index,
+                                 start_grid, triple_spec)
+from ..ops.window.window_kernels import (_check_grid_spans, _chunk,
+                                         _grid_spans, _lanes, _launch, _zero,
+                                         density_consts)
 from .metaballs import pack_framebuffer, w_ref_of
 
 __all__ = ["WindowRenderer", "pixel_layout", "pixel_window_cap",
@@ -124,49 +137,54 @@ def field_scale_of(cfg: SPHConfig) -> float:
 # ---------------------------------------------------------------------------
 
 
-def field_window_plain(q_packed, geo, w_start, w_len, cfg: SPHConfig,
+def field_window_plain(q_packed, rows, grid, span_idx, cfg: SPHConfig,
                        spec: TripleSpec):
-    """Plain PyTorch version of the field kernel: the same lanes
-    [w_start, w_start + min(w_len, cap)), the same per-lane operation order.
-    Returns the unnormalised field per layout slot, (n_layout,) float32."""
+    """Plain PyTorch version of the field kernel: the same lanes (the first
+    min(sum of span lengths, cap) rows under the block's spans, in span
+    order), the same per-lane operation order.  Returns the unnormalised
+    field per layout slot, (n_layout,) float32."""
     c = density_consts(cfg)
-    n_blocks, qb, L = spec.n_layout // spec.qb, spec.qb, geo.shape[0]
+    n_blocks, qb = spec.n_layout // spec.qb, spec.qb
     out = torch.empty(spec.n_layout, dtype=torch.float32, device=q_packed.device)
     step = _chunk(spec)
     for b0 in range(0, n_blocks, step):
         b1 = min(b0 + step, n_blocks)
-        idx, valid = _windows(w_start, w_len, b0, b1, spec.cap, L)
-        cand = geo[idx]                                     # (nb, lanes, 4)
+        idx, valid = _lanes(*_grid_spans(span_idx[b0:b1], grid, rows.shape[0]),
+                            spec.cap)
+        cand = rows[idx]                                    # (nb, lanes, 8)
         q = q_packed[b0 * qb:b1 * qb].reshape(b1 - b0, qb, 8)
         dx = q[:, :, 0:1] - cand[:, None, :, 0]
         dy = q[:, :, 1:2] - cand[:, None, :, 1]
         r = torch.sqrt(dx * dx + dy * dy)
         t1 = torch.clamp_min(1.0 - c["half_inv_h"] * r, 0.0)
         t1sq = t1 * t1
-        gate = torch.where(cand[:, None, :, 2] > 0.0, 1.0, 0.0)
+        gate = torch.where(cand[:, None, :, 4] > 0.0, 1.0, 0.0)
         term = (gate * (t1sq * t1sq)) * (1.0 + c["two_inv_h"] * r)
         term = torch.where(valid[:, None, :], term, _zero(term))
         out[b0 * qb:b1 * qb] = term.sum(-1).reshape(-1)
     return out
 
 
-def field_window(q_packed, geo, w_start, w_len, cfg: SPHConfig,
+def field_window(q_packed, rows, grid, span_idx, cfg: SPHConfig,
                  spec: TripleSpec):
-    """Unnormalised pixel field (n_layout,) from the (L, 4) candidates
-    [x, y, m, 0]; the kernel on CUDA tensors, the plain version on CPU ones."""
-    _check_windows(spec, q_packed, geo, 4, w_start, w_len)
-    dev = q_packed.device
+    """Unnormalised pixel field (n_layout,) over the fluid rows ``rows``
+    (n, 8) [x, y, u, v | m, ...]: span k of pixel block b is rows
+    [grid[i_lo], grid[i_hi]) for ``span_idx[b, k] = [i_lo, i_hi]``
+    (ops/window/triple.py: ``start_grid``, ``span_index``).  ``rows`` and
+    ``grid`` may be those of a part of a domain.  The kernel on CUDA
+    tensors, the plain version on CPU ones."""
+    dev = _check_grid_spans(spec, q_packed, rows, grid, span_idx)
     if dev.type == "cpu":
-        return field_window_plain(q_packed, geo, w_start, w_len, cfg, spec)
+        return field_window_plain(q_packed, rows, grid, span_idx, cfg, spec)
     if dev.type != "cuda":
         raise ValueError(f"no window kernel for device {dev}")
     fn, stream = _launch("field_window", dev)
     out = torch.empty(spec.n_layout, dtype=torch.float32, device=dev)
     c = density_consts(cfg)
-    err = fn(q_packed.data_ptr(), geo.data_ptr(), w_start.data_ptr(),
-             w_len.data_ptr(), out.data_ptr(), spec.n_layout // spec.qb,
-             spec.qb, spec.cap, geo.shape[0], c["half_inv_h"], c["two_inv_h"],
-             stream)
+    err = fn(q_packed.data_ptr(), rows.data_ptr(), grid.data_ptr(),
+             span_idx.data_ptr(), out.data_ptr(), spec.n_layout // spec.qb,
+             spec.qb, spec.cap, spec.seg_q + 2, rows.shape[0], grid.shape[0],
+             c["half_inv_h"], c["two_inv_h"], stream)
     if err:
         raise RuntimeError(f"field_window kernel launch failed: CUDA error {err}")
     field_window.launches += 1
@@ -202,83 +220,56 @@ class WindowRenderer:
         self.c_last = torch.as_tensor(lay["c_last"], device=dev)
         self.has_q = torch.as_tensor(lay["has_q"], device=dev)
         n_layout = lay["n_layout"]
-        # self-relayout mode: a private fluid-only candidate spec whose cap
-        # is the pixel bound for the renderer's own segment height
+        # self-relayout mode: the renderer's own segment height, and the
+        # pixel bound for it as the cap
         cap = pixel_window_cap(cfg, cols, qb, seg_q)
-        self.fspec = triple_spec(cfg, engine.n_real, 0, tq, qb, cap, seg_q)
-        self.spec = self.fspec._replace(n_layout=n_layout)
-        # frame-reuse mode: pixel windows over the engine's candidate
-        # structure, the cap re-derived for the engine's segment height
+        self.spec = triple_spec(cfg, engine.n_real, 0, tq, qb, cap,
+                                seg_q)._replace(n_layout=n_layout)
+        # frame-reuse mode: pixel windows over the engine's segments, the
+        # cap re-derived for the engine's segment height
         self.reuse_spec = engine.spec._replace(
             n_layout=n_layout, tq=tq, qb=qb,
             cap=pixel_window_cap(cfg, cols, qb, engine.spec.seg_q))
-        self.n_boundary = int(engine.boundary.x.shape[0])
-        self._bcsr0 = torch.zeros(cfg.n_cells + 1, dtype=_I32, device=dev)
-        self._inert = torch.tensor([[INERT_PX, INERT_PX, 0.0, 0.0]],
-                                   dtype=torch.float32, device=dev)
+        # the pixel blocks' cells are static, so their index pairs into a
+        # start grid are too: one table per segment height
+        cells = (self.c_first, self.c_last, self.has_q)
+        self.span_idx = span_index(cfg, seg_q, *cells)
+        self.reuse_span_idx = self.span_idx if engine.spec.seg_q == seg_q else \
+            span_index(cfg, engine.spec.seg_q, *cells)
 
-    def _windows(self, T, spec: TripleSpec):
-        w_start, w_len, overflow = pixel_windows(
-            T, self.c_first, self.c_last, self.has_q, spec.cap, self.cfg.n_cells)
-        shape = (spec.n_tiles, spec.nqb)
-        return w_start.reshape(shape), w_len.reshape(shape), overflow
-
-    def _field(self, geo, w_start, w_len, spec: TripleSpec):
-        out = field_window(self.q_packed, geo, w_start, w_len, self.cfg, spec)
+    def _field(self, rows, grid, span_idx, spec: TripleSpec):
+        out = field_window(self.q_packed, rows, grid, span_idx, self.cfg, spec)
         return out[self.unsort] * self.field_scale
 
-    @staticmethod
-    def _slim(packed):
-        """[x, y, m, 0] rows of the packed state.  Slices, not a list index:
-        a list index is copied to the device from pageable memory, which
-        makes the host wait for the device once per frame."""
-        return torch.cat([packed[:, 0:2], packed[:, 4:5],
-                          torch.zeros_like(packed[:, :1])], 1)
-
     def field(self, sim):
-        """(row-major pixel field, window overflow), re-laying-out the fluid
-        from live positions: exact for any state (`:268-305`)."""
-        cfg, fspec = self.cfg, self.fspec
+        """(row-major pixel field, window overflow), sorting the fluid from
+        live positions: exact for any state (`:268-305`).  The sorted rows
+        are the kernel's source and their CSR its start grid; the overflow
+        counts the fluid lanes of a window beyond the cap (this mode has no
+        boundary lanes and no candidate-array budget to overrun)."""
+        cfg, spec = self.cfg, self.spec
         packed = sim.packed
         keys = torch.where(packed[:, 4] > 0, cell_ids(packed[:, 0], packed[:, 1], cfg),
                            torch.full_like(packed[:, 4], cfg.n_cells, dtype=_I32))
         order = torch.argsort(keys, stable=True)
-        layout_src, trip_src, T, _ = build_frame(
-            fspec, cfg, csr_starts(keys, cfg.n_cells + 2), self._bcsr0)
-        slim = self._slim(packed)[order]
-        if slim.shape[0] >= fspec.n_layout:
-            slim = slim[:fspec.n_layout]           # drops only inert tail pads
-        else:
-            slim = torch.cat([slim, slim.new_zeros(fspec.n_layout - slim.shape[0], 4)])
-        pk_r = torch.cat([slim, self._inert])[layout_src.long()]
-        geo = torch.cat([pk_r, self._inert]).index_select(0, trip_src)
-        w_start, w_len, overflow = self._windows(T, self.spec)
-        return self._field(geo, w_start, w_len, self.spec), overflow
+        # bins through n_cells, so that the last grid row has its end
+        grid = start_grid(cfg, csr_starts(keys, cfg.n_cells + 1))
+        w_len = (grid[self.span_idx[:, :, 1]] - grid[self.span_idx[:, :, 0]]).sum(1)
+        raw = torch.sum(torch.clamp_min(w_len - spec.cap, 0).to(torch.float32))
+        overflow = torch.clamp_max(raw, 1e8).to(_I32)
+        return self._field(packed[order], grid, self.span_idx, spec), overflow
 
-    def frame_inputs(self, sim, frame):
-        """The field kernel's inputs over the engine's relayout frame
-        ``(trip_src, T)``: (candidates (L + cap, 4), w_start, w_len, each
-        (n_tiles, nqb), overflow).  Boundary and inert rows get m = 0."""
-        trip_src, T = frame
-        packed = sim.packed
-        src = torch.cat([self._slim(packed),
-                         packed.new_zeros(self.n_boundary + 1, 4)])
-        # the pixel cap exceeds the engine's per-segment padding, so give
-        # the windows cap zero rows past the engine's L
-        L = trip_src.shape[0]
-        geo = packed.new_empty(L + self.reuse_spec.cap, 4)
-        torch.index_select(src, 0, trip_src, out=geo[:L])
-        geo[L:].zero_()
-        return (geo,) + self._windows(T, self.reuse_spec)
-
-    def field_from_frame(self, sim, frame):
+    def field_from_frame(self, sim, frame: Frame):
         """(row-major pixel field, overflow) over the engine's relayout frame
         instead of a sort per frame (`:308-355`).  Exact when the frame is
         layout-fresh; under sticky layouts it is at most resort_every - 1
         ticks stale, which can only miss particles in the outer fringe of a
         pixel's support, the bound the physics runs under."""
-        geo, w_start, w_len, overflow = self.frame_inputs(sim, frame)
-        return self._field(geo, w_start, w_len, self.reuse_spec), overflow
+        spec = self.reuse_spec
+        _, _, overflow = pixel_windows(frame.T, self.c_first, self.c_last,
+                                       self.has_q, spec.cap, self.cfg.n_cells)
+        return self._field(sim.packed, frame.start_grid, self.reuse_span_idx,
+                           spec), overflow
 
     def _pack(self, field):
         lit = (field >= 1.0).reshape(self.rows, self.cols)

@@ -19,7 +19,6 @@ import json
 
 import torch
 
-from .. import PackedSim
 from ..ops.window import window_kernels as wk
 from ..render import metaballs_window as mw
 from ..utils import profiling
@@ -46,11 +45,9 @@ def wrapper_calls(device, n_pool: int = 100_000) -> dict:
         "forces_window": lambda: wk.forces_window(
             pk, geo8, rp, eng._b_geo_f, ctx.spans, G, cfg, spec, half_dt, 1.0)}
     rend = mw.WindowRenderer(eng, 64, 128)
-    zero = torch.zeros_like(pk[:, 0])
-    sim = PackedSim(packed=pk, ids=pk[:, 7].int(), au=zero, av=zero)
-    geo_r, ws_r, wl_r, _ = rend.frame_inputs(sim, (ctx.trip_src, ctx.T))
     calls["field_window"] = lambda: mw.field_window(
-        rend.q_packed, geo_r, ws_r, wl_r, cfg, rend.reuse_spec)
+        rend.q_packed, pk, ctx.start_grid, rend.reuse_span_idx, cfg,
+        rend.reuse_spec)
     L, n_tiles = up.SHAPES[0]
     src_np, _, un = up.make_starts(L, n_tiles)
     src, starts = torch.from_numpy(src_np).to(device), torch.from_numpy(un).to(device)

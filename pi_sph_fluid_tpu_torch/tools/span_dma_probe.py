@@ -2,7 +2,9 @@
 spans instead of one staged window?  (Port of `tools/span_dma_probe.py`,
 the v5e probe of the 3-span megakernel fetch.)
 
-A density-like kernel (csrc/probe_kernels.cu, ``span_density_kernel``) runs
+A density-like kernel (csrc/probe_kernels.cu, ``span_density_kernel``, on
+the thread mapping of the shipped window kernels: a group of threads a
+query, the columns staged chunk by chunk, so any lane count launches) runs
 per query block over ``spans`` windows of ``span_cap`` source columns, at
 equal lanes and bytes in every variant:
 
@@ -102,10 +104,8 @@ def _check(q, src, w_s, spans, span_cap, tq, qb):
     if w_s.dim() != 3 or w_s.shape[0] < n_tiles or tuple(w_s.shape[1:]) != (nqb, spans):
         raise ValueError(f"w_s must be (>= {n_tiles}, {nqb}, {spans}), "
                          f"got {tuple(w_s.shape)}")
-    if dev.type == "cuda" and not (1 <= qb <= 32 and spans * span_cap <= 4096):
-        raise ValueError(f"qb={qb} must be 1..32 (a warp per query) and "
-                         f"spans*span_cap={spans * span_cap} at most 4096 "
-                         "(48 KB of shared memory)")
+    if dev.type == "cuda" and not 1 <= qb <= 32:
+        raise ValueError(f"qb={qb} must be 1..32 for the kernel")
     return n_tiles, nqb
 
 

@@ -25,7 +25,9 @@ ms/tick over 5 repeats, then where the device time of a tick goes (with
 the share of the two window kernels, of the per-relayout span build that
 feeds them, and of any row gather left), and where the time of a rendered
 frame goes (``render_from_frame`` at 64x128 and 256x128 on the r64 run's
-last frame, 20 frames):
+last frame, 20 frames: the field kernel, the unsort gather of its output,
+and the rest, which is the overflow count, the scale, the threshold and the
+page pack):
 
     python -m pi_sph_fluid_tpu_torch.utils.profiling
 """
@@ -46,7 +48,7 @@ from ..models.boundary import prepare_boundary
 from ..models.engine_v3 import WindowEngine
 from ..models.scene import build_pool_scene
 from ..ops.grid import cell_ids, csr_starts
-from ..ops.window.triple import block_spans, build_frame
+from ..ops.window.triple import block_spans, build_frame, start_grid
 from ..render.metaballs_window import WindowRenderer
 
 __all__ = ["pool_engine", "throughput", "device_breakdown", "event_ms",
@@ -248,43 +250,57 @@ def main() -> None:
             b = device_breakdown(lambda: [rend.render_from_frame(sim, frame)
                                           for _ in range(N_FRAMES)], dev)
             _print_breakdown(f"{fluid.n} render_from_frame {rows}x128: "
-                             f"{N_FRAMES} frames", "frame", N_FRAMES, b)
+                             f"{N_FRAMES} frames", "frame", N_FRAMES, b, FRAME_PARTS)
 
 
 def _print_span_build(eng, sim, dev) -> None:
-    """What feeds the window kernels, once per relayout: ``block_spans`` on
-    the primed state's own cells (event ms, device ms and launches)."""
+    """What feeds the window kernels, once per relayout: ``start_grid`` and
+    ``block_spans`` on the primed state's own cells (event ms, device ms and
+    launches)."""
     cfg, pk = eng.cfg, sim.packed
     cells = torch.where(pk[:, 4] > 0, cell_ids(pk[:, 0], pk[:, 1], cfg),
                         torch.full_like(pk[:, 4], cfg.n_cells, dtype=torch.int32))
     cell_starts = csr_starts(cells, cfg.n_cells + 2)
-    row_shift = build_frame(eng.spec, cfg, cell_starts, eng.b_cell_starts)[3]
+    row_shift = build_frame(eng.spec, cfg, cell_starts, eng.b_cell_starts)[2]
 
     def build():
-        return block_spans(eng.spec, cfg, cells, cell_starts, eng.b_cell_starts,
-                           row_shift)
+        return block_spans(eng.spec, cfg, cells,
+                           start_grid(cfg, cell_starts, row_shift), eng._b_grid)
 
     ms = event_ms(build, 20)
     b = device_breakdown(lambda: [build() for _ in range(20)], dev)
-    print(f"== {eng.n_real} span build (block_spans), per relayout: "
+    print(f"== {eng.n_real} span build (start_grid + block_spans), per relayout: "
           f"{ms:.4f} ms by events, device {b['busy_s'] * 1e3 / 20:.4f} ms in "
           f"{sum(r[2] for r in b['rows']) / 20:.1f} launches", flush=True)
 
 
-def _print_breakdown(title: str, unit: str, n: int, b: dict) -> None:
+# device kernels by part, as substrings of their names: of a tick, and of a
+# rendered frame (whose candidates nothing prepares: what is not the field
+# kernel or the unsort of its output is the overflow count, the scale, the
+# threshold and the page pack)
+TICK_PARTS = (("window kernels", ("density_window_kernel", "forces_window_kernel")),
+              ("row gathers (index_select, index)",
+               ("index_select", "index_elementwise", "indexSelect", "gather")))
+FRAME_PARTS = (("field kernel", ("field_window_kernel",)),
+               ("unsort of the field (index)",
+                ("index_select", "index_elementwise", "indexSelect", "gather")))
+
+
+def _print_breakdown(title: str, unit: str, n: int, b: dict,
+                     parts=TICK_PARTS) -> None:
     print(f"== {title}, traced wall {b['wall_s'] * 1e3 / n:.4f} ms/{unit}, "
           f"device busy {b['busy_s'] * 1e3 / n:.4f} ms/{unit} "
           f"({100 * b['busy_s'] / b['wall_s']:.1f}% of wall), "
           f"syncs/{unit} {b['syncs'] / n:.2f}", flush=True)
-    for what, keys in (("window kernels", ("density_window_kernel",
-                                           "forces_window_kernel")),
-                       ("row gathers (index_select, index)", ("index_select",
-                                                              "index_elementwise",
-                                                              "indexSelect",
-                                                              "gather"))):
+    rest_s, rest_n = b["busy_s"], sum(r[2] for r in b["rows"])
+    for what, keys in parts:
         rows = [r for r in b["rows"] if any(k in r[0] for k in keys)]
+        rest_s -= sum(r[1] for r in rows)
+        rest_n -= sum(r[2] for r in rows)
         print(f"   {what}: {sum(r[1] for r in rows) * 1e3 / n:.4f} ms/{unit} in "
               f"{sum(r[2] for r in rows) / n:.2f} launches/{unit}", flush=True)
+    print(f"   everything else: {rest_s * 1e3 / n:.4f} ms/{unit} in "
+          f"{rest_n / n:.2f} launches/{unit}", flush=True)
     for key, s, count in b["rows"][:14]:
         print(f"   {s * 1e3 / n:8.4f} ms/{unit} {100 * s / b['busy_s']:5.1f}%"
               f"  x{count / n:5.2f}/{unit}  {key[:90]}", flush=True)

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from pi_sph_fluid_tpu_torch.models.engine_v3 import PackedSim
 from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk
+from pi_sph_fluid_tpu_torch.ops.window.triple import Frame
 from pi_sph_fluid_tpu_torch.render import metaballs_window as mw
 from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp
 from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up
@@ -166,15 +168,9 @@ def test_span_kernels_take_garbage_spans_and_small_blocks():
         torch.testing.assert_close(acck, accp, rtol=2e-5, atol=2e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows", [64, 256])
-def test_field_kernel_matches_plain(rows):
-    """The field kernel against its plain version on the 20k pool's frame
-    (random velocities, one exact tick), through the renderer's own inputs:
-    the scaled field within rtol 1e-5 / atol 5e-5 (test_render_window.py:60), lit
-    pixels identical wherever |field - 1| > 1e-3, one launch counted."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc")
+def _pool_frame_for_render():
+    """The 20k pool with random velocities after one exact tick, and the
+    tick's relayout frame."""
     eng, fluid = pool_engine(20_000, "cuda")
     rng = np.random.default_rng(3)
     fluid = fluid._replace(**{
@@ -182,10 +178,10 @@ def test_field_kernel_matches_plain(rows):
         for k in ("u", "v")})
     sim, st, frame = eng.make_multi_step(return_frame=True)(
         eng.prime(fluid, G), np.float32([G]))
-    rend = mw.WindowRenderer(eng, rows, 128)
-    geo, ws, wl, ov = rend.frame_inputs(sim, frame)
-    assert int(ov) == 0
-    args = (rend.q_packed, geo, ws, wl, eng.cfg, rend.reuse_spec)
+    return eng, sim, frame
+
+
+def _assert_field_close(rend, args):
     before = mw.field_window.launches
     fk = mw.field_window(*args)
     fp = mw.field_window_plain(*args)
@@ -195,6 +191,65 @@ def test_field_kernel_matches_plain(rows):
     torch.testing.assert_close(fk, fp, rtol=1e-5, atol=5e-5)
     confident = (fp - 1.0).abs() > 1e-3
     assert torch.equal((fk >= 1.0)[confident], (fp >= 1.0)[confident])
+    return fk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 256])
+def test_field_kernel_matches_plain(rows):
+    """The field kernel against its plain version on the 20k pool's frame
+    (random velocities, one exact tick), through the renderer's own inputs
+    (the packed state, the frame's start grid, the static index pairs): the
+    scaled field within rtol 1e-5 / atol 5e-5 (test_render_window.py:60), lit
+    pixels identical wherever |field - 1| > 1e-3, one launch counted; and
+    the same through the self-relayout inputs of ``field``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    eng, sim, frame = _pool_frame_for_render()
+    rend = mw.WindowRenderer(eng, rows, 128)
+    fk = _assert_field_close(rend, (rend.q_packed, sim.packed, frame.start_grid,
+                                    rend.reuse_span_idx, eng.cfg, rend.reuse_spec))
+    assert float(fk.max()) > 1.0
+    f_frame, ov = rend.field_from_frame(sim, frame)
+    f_self, ov_self = rend.field(sim)
+    assert int(ov) == int(ov_self) == 0
+    torch.testing.assert_close(f_frame, f_self, rtol=1e-5, atol=5e-5)
+
+
+@pytest.mark.cuda
+def test_field_kernel_truncates_and_clamps():
+    """A cap that truncates windows (the kernel keeps the first cap fluid
+    lanes in span order, as the plain version does, through several staged
+    chunks or less than one) and a start grid with garbage entries, which is
+    clamped and never read past (no fault on synchronize)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    eng, fluid = pool_engine(20_000, "cuda")
+    # squeezed to half its width and height: four times as dense, so that
+    # the pixel windows span several staged chunks
+    fluid = fluid._replace(x=fluid.x * 0.5, y=fluid.y * 0.5)
+    pk, ctx, _ = eng._relayout(eng._initial_packed(fluid))
+    zero = torch.zeros_like(pk[:, 0])
+    sim = PackedSim(packed=pk, ids=pk[:, 7].int(), au=zero, av=zero)
+    frame = Frame(ctx.start_grid, ctx.T)
+    rend = mw.WindowRenderer(eng, 64, 128)
+    full = rend.reuse_spec
+    assert full.cap > 300
+    for cap in (24, 300, full.cap):
+        spec = full._replace(cap=cap)
+        fk = _assert_field_close(rend, (rend.q_packed, pk, frame.start_grid,
+                                        rend.reuse_span_idx, eng.cfg, spec))
+        rend.reuse_spec = spec
+        if cap < full.cap:
+            assert int(rend.field_from_frame(sim, frame)[1]) > 0
+        assert float(fk.max()) > 0
+    grid = frame.start_grid.clone()
+    grid[::7] = torch.tensor([-5, 1 << 30, -(1 << 31), (1 << 31) - 1, 3, 1 << 20, 0],
+                             dtype=torch.int32, device="cuda").repeat(
+        -(-grid[::7].numel() // 7))[:grid[::7].numel()]
+    idx = rend.reuse_span_idx.clone()
+    idx[5] = torch.tensor([[-3, 1 << 30]] * idx.shape[1], dtype=torch.int32)
+    _assert_field_close(rend, (rend.q_packed, pk, grid, idx, eng.cfg, full))
 
 
 @pytest.mark.cuda
@@ -233,6 +288,26 @@ def test_span_density_kernel_matches_plain(variant):
     want = sp.span_density_plain(q, src, w_s, spans, span_cap)
     torch.cuda.synchronize()
     assert sp.span_density.launches == before + 1
+    scale = float(want.abs().max())
+    assert scale > 0.0
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spans,span_cap,qb,tq", [
+    (3, 2048, 16, 256), (1, 8192, 16, 256), (5, 100, 8, 256), (2, 256, 32, 256),
+    (2, 256, 1, 256), (3, 100, 5, 160), (1, 512, 31, 248)])
+def test_span_density_kernel_any_lane_count(spans, span_cap, qb, tq):
+    """The staged chunk is fixed, so any spans x span_cap launches: past
+    the 4096 lanes a block's shared memory once held, span lengths that are
+    no multiple of the chunk, and other query-block sizes, odd ones and a
+    single query included (the last thread group then keeps one query)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    q, src, w_s = sp.make_inputs(8 * tq, 20_000, spans, span_cap, "cuda", tq, qb, seed=5)
+    got = sp.span_density(q, src, w_s, spans, span_cap, tq, qb)
+    want = sp.span_density_plain(q, src, w_s, spans, span_cap, tq, qb)
+    torch.cuda.synchronize()
     scale = float(want.abs().max())
     assert scale > 0.0
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)

@@ -26,7 +26,9 @@ from pi_sph_fluid_tpu.render.metaballs import pack_framebuffer as j_pack
 
 import pi_sph_fluid_tpu_torch as T
 from pi_sph_fluid_tpu_torch import convert
-from pi_sph_fluid_tpu_torch.ops.grid import build_grid
+from pi_sph_fluid_tpu_torch.ops.grid import build_grid, cell_ids
+from pi_sph_fluid_tpu_torch.ops.window import triple as ttriple
+from pi_sph_fluid_tpu_torch.ops.window import window_kernels as twk
 from pi_sph_fluid_tpu_torch.render import metaballs as tm
 from pi_sph_fluid_tpu_torch.render import metaballs_window as tmw
 
@@ -117,17 +119,26 @@ def test_field_matches_jax(drop):
 
 
 def test_field_from_frame_matches_jax(drop):
-    """The frame-reuse field on the same state and the same frame (three
-    exact ticks of the JAX engine, carried across by convert.frame)."""
+    """The frame-reuse field on the same state and the same relayout (three
+    exact ticks of the JAX engine; convert.frame derives the port's frame
+    from the layout-fresh state and holds its T against JAX's, bitwise).
+    JAX gathers the windows and runs the Pallas kernel in interpret mode;
+    the port reads the same fluid rows through the spans."""
     je, te, jsim, jr, tr = drop
     multi = jax.jit(je.make_multi_step(return_frame=True))
     gt = jnp.broadcast_to(jnp.asarray(G, jnp.float32), (3, 2))
     jsim3, _, jframe = multi(jsim, gt)
     jf, jov = jax.jit(jr.field_from_frame)(jsim3, jframe)
-    tf, tov = tr.field_from_frame(convert.packed_sim(jsim3, "cpu"),
-                                  convert.frame(jframe, "cpu"))
+    tsim3 = convert.packed_sim(jsim3, "cpu")
+    frame = convert.frame(te, tsim3, jframe)
+    np.testing.assert_array_equal(frame.T.numpy(), np.asarray(jframe[1]))
+    tf, tov = tr.field_from_frame(tsim3, frame)
     assert int(jov) == int(tov) == 0
     _assert_field(tf.numpy(), jf, 5e-5)
+    assert tmw.field_window.launches == 0
+    # a frame whose T is not this state's own is refused
+    with pytest.raises(ValueError, match="layout-fresh"):
+        convert.frame(te, tsim3, (jframe[0], np.asarray(jframe[1]) + 1))
 
 
 def test_field_from_frame_sticky_stale(drop):
@@ -275,14 +286,194 @@ def test_single_particle_lights_its_pixel():
 
 def test_field_window_raises_off_cpu_and_cuda(drop):
     """No silent fallback: a tensor on a device with no kernel raises, and
-    so does a wrong dtype."""
-    tr = drop[4]
+    so does an argument of the wrong type, shape or layout."""
+    te, tr = drop[1], drop[4]
     s = tr.reuse_spec
-    ws = torch.empty((s.n_tiles, s.nqb), dtype=torch.int32, device="meta")
+    meta = dict(device="meta")
+    idx = torch.empty((s.n_layout // s.qb, s.seg_q + 2, 2), dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="no window kernel"):
-        tmw.field_window(torch.empty((s.n_layout, 8), device="meta"),
-                         torch.empty((64, 4), device="meta"), ws, ws, tr.cfg, s)
+        tmw.field_window(torch.empty((s.n_layout, 8), **meta),
+                         torch.empty((64, 8), **meta),
+                         torch.empty(9, dtype=torch.int32, **meta), idx, tr.cfg, s)
+    rows = torch.zeros((te.n_layout, 8))
+    grid = torch.zeros(te.cfg.n_cell_rows * (te.cfg.n_cell_cols + 1), dtype=torch.int32)
+    idx = tr.reuse_span_idx
+    assert tmw.field_window(tr.q_packed, rows, grid, idx, tr.cfg, s).shape == (s.n_layout,)
     with pytest.raises(ValueError, match="int32"):
-        tmw.field_window(tr.q_packed, torch.zeros((64, 4)),
-                         torch.zeros((s.n_tiles, s.nqb)),
-                         torch.zeros((s.n_tiles, s.nqb), dtype=torch.int32), tr.cfg, s)
+        tmw.field_window(tr.q_packed, rows, grid.long(), idx, tr.cfg, s)
+    with pytest.raises(ValueError, match="int32"):
+        tmw.field_window(tr.q_packed, rows, grid, idx.long(), tr.cfg, s)
+    with pytest.raises(ValueError, match="span_idx"):
+        tmw.field_window(tr.q_packed, rows, grid, idx[:, :-1].contiguous(), tr.cfg, s)
+    with pytest.raises(ValueError, match="source rows"):
+        tmw.field_window(tr.q_packed, rows[:, :4].contiguous(), grid, idx, tr.cfg, s)
+    with pytest.raises(ValueError, match="start grid"):
+        tmw.field_window(tr.q_packed, rows, grid.reshape(1, -1), idx, tr.cfg, s)
+    with pytest.raises(ValueError, match="not contiguous"):
+        tmw.field_window(tr.q_packed, rows, grid, idx.transpose(0, 1).contiguous()
+                         .transpose(0, 1), tr.cfg, s)
+    with pytest.raises(ValueError, match="q_packed"):
+        tmw.field_window(tr.q_packed[:-8], rows, grid, idx, tr.cfg, s)
+
+
+# ---- the span-fed field kernel's inputs ----------------------------------
+
+
+def _span_rows(grid, idx_b):
+    """Source rows under one block's index pairs, in span order."""
+    return np.concatenate([np.arange(grid[lo], grid[hi]) for lo, hi in idx_b]
+                          + [np.zeros(0, np.int64)]).astype(np.int64)
+
+
+@pytest.mark.parametrize("seg_q", [1, 2, 3])
+@pytest.mark.parametrize("rows,cols", [(64, 128), (256, 128)])
+def test_pixel_spans_name_the_fluid_rows_of_the_jax_window(rows, cols, seg_q):
+    """On the JAX engine's own relayout of the dam break: the rows under a
+    pixel block's spans (static index pairs into the port's start grid) are
+    exactly the fluid rows of JAX's trip_src[w_start : w_start + w_len], as
+    multisets, for every pixel block, at both rasters and each segment
+    height; the boundary and inert lanes of the window are the rest."""
+    kw = dict(KW, seg_q=seg_q)
+    jc = J.SPHConfig()
+    fluid, braw = J.build_dam_break_scene(jc)
+    b, bg = J.prepare_boundary(braw, jc)
+    je = JEngine(jc, b, bg, fluid.n, planes=1, band=0, interpret=True, **kw)
+    te = T.WindowEngine(T.SPHConfig(), convert.boundary_state(b, "cpu"),
+                        convert.grid_context(bg, "cpu"), fluid.n, "cpu", **kw)
+    pk = np.asarray(je._initial_packed(fluid))
+    _, jctx, _ = jax.jit(je._relayout)(jnp.asarray(pk))
+    _, tctx, _ = te._relayout(torch.tensor(pk))
+    trip, jT = np.asarray(jctx.trip_src), np.asarray(jctx.T)
+    lay = jmw.pixel_layout(jc, *j_pixel_centers(jc, rows, cols), 8, 64)
+    c_first, c_last, has_q = lay["c_first"], lay["c_last"], lay["has_q"]
+    idx = ttriple.span_index(te.cfg, seg_q, torch.tensor(c_first),
+                             torch.tensor(c_last), torch.tensor(has_q))
+    assert idx.dtype == torch.int32 and idx.shape == (len(c_first), seg_q + 2, 2)
+    grid = tctx.start_grid.numpy()
+    assert grid.shape == (te.cfg.n_cell_rows * (te.cfg.n_cell_cols + 1),)
+    n_layout, seen = te.spec.n_layout, 0
+    for blk in range(len(c_first)):
+        got = _span_rows(grid, idx[blk].numpy())
+        if not has_q[blk]:
+            assert len(got) == 0
+            continue
+        w0 = jT[c_first[blk], 0]
+        window = trip[w0:jT[c_last[blk], 1]]
+        np.testing.assert_array_equal(np.sort(got), np.sort(window[window < n_layout]))
+        seen += len(got)
+    assert seen > fluid.n                    # windows overlap: rows repeat
+
+
+def test_engine_and_renderer_share_the_span_definition(drop):
+    """The fluid half of the engine's span table is the start grid read
+    through span_index of the engine's own blocks."""
+    te = drop[1]
+    pk, ctx, _ = te._relayout(te._initial_packed(T.build_drop_scene(te.cfg, "cpu")[0]))
+    cells = torch.where(pk[:, 4] > 0, cell_ids(pk[:, 0], pk[:, 1], te.cfg),
+                        torch.full_like(pk[:, 4], te.cfg.n_cells, dtype=torch.int32))
+    idx = ttriple.span_index(te.cfg, te.spec.seg_q,
+                             *ttriple._block_cells(te.spec, te.cfg, cells)).long()
+    cover = te.spec.seg_q + 2
+    start = ctx.start_grid[idx[:, :, 0]]
+    torch.testing.assert_close(ctx.spans[:, :cover, 0], start, rtol=0, atol=0)
+    torch.testing.assert_close(ctx.spans[:, :cover, 1],
+                               ctx.start_grid[idx[:, :, 1]] - start, rtol=0, atol=0)
+
+
+def _brute_field(cfg, x, y, rows=64, cols=128):
+    px, py = T.pixel_centers(cfg, rows, cols)
+    q = np.sqrt((px[:, None] - x[None]) ** 2
+                + (py[:, None] - y[None]) ** 2) / np.float32(cfg.h)
+    t1 = np.maximum(1 - 0.5 * q, 0)
+    w = np.float32(cfg.kernel_norm) * t1 ** 4 * (1 + 2 * q)
+    return w.sum(1) * tmw.field_scale_of(cfg) / np.float32(cfg.kernel_norm)
+
+
+@pytest.mark.parametrize("seg_q", [2, 3])
+def test_fields_at_256x128_match_brute_force(drop, seg_q):
+    """Both modes at the fine raster against a dense numpy sum, with the
+    engine's segment height equal to the renderer's (one index table) and
+    different from it (one table per mode)."""
+    te0, jsim = drop[1], drop[2]
+    b, bg = T.prepare_boundary(T.build_drop_scene(te0.cfg, "cpu")[1], te0.cfg)
+    te = T.WindowEngine(te0.cfg, b, bg, te0.n_real, "cpu", **dict(KW, seg_q=seg_q))
+    tr = T.WindowRenderer(te, 256, 128)
+    assert (tr.reuse_span_idx is tr.span_idx) == (seg_q == 2)
+    assert tr.reuse_span_idx.shape[1] == seg_q + 2 and tr.span_idx.shape[1] == 4
+    fluid = te0.unpad(convert.packed_sim(jsim, "cpu"))
+    sim, _, frame = te.make_multi_step(return_frame=True)(
+        te.prime(fluid, G), np.float32([G]))
+    assert isinstance(frame, ttriple.Frame)
+    fl = te.unpad(sim)
+    want = _brute_field(te.cfg, fl.x.numpy(), fl.y.numpy(), 256, 128)
+    for field, ov in (tr.field(sim), tr.field_from_frame(sim, frame)):
+        assert int(ov) == 0
+        np.testing.assert_allclose(field.numpy(), want, atol=5e-5)
+
+
+def test_truncated_pixel_window_counts_overflow_and_keeps_first_lanes(drop):
+    """w_len > cap: the overflow counts every lane of the window (fluid and
+    boundary) beyond the cap, as JAX's pixel_windows does on the same T, and
+    the field is the sum over the first cap fluid lanes in span order (JAX
+    keeps the first cap lanes of its column-major window instead)."""
+    je, te, jsim, jr, tr0 = drop
+    tr = T.WindowRenderer(te, 64, 128)
+    cap = 16
+    tr.reuse_spec = tr.reuse_spec._replace(cap=cap)
+    sim = convert.packed_sim(jsim, "cpu")
+    sim, _, frame = te.make_multi_step(return_frame=True)(sim, np.float32([G]))
+    field, ov = tr.field_from_frame(sim, frame)
+    _, w_len, _ = tmw.pixel_windows(frame.T, tr.c_first, tr.c_last, tr.has_q,
+                                    cap, te.cfg.n_cells)
+    assert int(ov) == int((w_len - cap).clamp_min(0).sum()) > 0
+    Tj = jnp.asarray(frame.T.numpy())
+    _, jflen, jov = jmw.pixel_windows(Tj, jr.blk_c_first, jr.blk_c_last,
+                                      jr.blk_has_q, cap, je.spec.L + cap,
+                                      je.cfg.n_cells)
+    # JAX's dual-plane fetch adds each start's offset in its 64-lane plane
+    # to the fetched length; without it the windows and the count are JAX's
+    jstart = np.where(np.asarray(jr.blk_has_q), np.asarray(Tj[jr.blk_c_first, 0]), 0)
+    jw_len = np.asarray(jflen) - jstart % 64
+    np.testing.assert_array_equal(jw_len, w_len.numpy())
+    assert int(np.maximum(jw_len - cap, 0).sum()) == int(ov) <= int(jov)
+    grid, idx = frame.start_grid.numpy(), tr.reuse_span_idx.numpy()
+    pk = sim.packed.numpy().astype(np.float64)
+    q = tr.q_packed.numpy().astype(np.float64)
+    lanes = np.array([len(_span_rows(grid, idx[b])) for b in range(len(idx))])
+    assert (lanes > cap).any() and (lanes <= w_len.numpy()).all()
+    out = np.zeros(len(q))
+    for b in np.nonzero(lanes)[0]:
+        r = pk[_span_rows(grid, idx[b])[:cap]]
+        r = r[r[:, 4] > 0]
+        for i in range(b * 8, b * 8 + 8):
+            d = np.sqrt((q[i, 0] - r[:, 0]) ** 2 + (q[i, 1] - r[:, 1]) ** 2) / te.cfg.h
+            out[i] = (np.maximum(1 - 0.5 * d, 0) ** 4 * (1 + 2 * d)).sum()
+    want = out[tr.unsort.numpy()] * tr.field_scale
+    np.testing.assert_allclose(field.numpy(), want, atol=5e-5)
+    full, ov_full = tr0.field_from_frame(sim, frame)
+    assert int(ov_full) == 0 and float((full - field).abs().max()) > 0.1
+    # the self-relayout mode counts its fluid lanes beyond the cap
+    assert int(tr0.field(sim)[1]) == 0
+    tr.spec = tr.spec._replace(cap=cap)
+    assert int(tr.field(sim)[1]) > 0
+
+
+def test_garbage_start_grid_and_index_pairs_are_clamped(drop):
+    """Start-grid entries and index pairs that point anywhere are cut to the
+    arrays they index, as the kernel cuts them: every lane names a source
+    row and the field stays finite."""
+    te, tr = drop[1], drop[4]
+    pk, ctx, _ = te._relayout(te._initial_packed(T.build_drop_scene(te.cfg, "cpu")[0]))
+    grid, idx = ctx.start_grid.clone(), tr.reuse_span_idx.clone()
+    live = torch.nonzero((grid[idx[:, :, 1].long()] - grid[idx[:, :, 0].long()]) > 0)
+    assert len(live) > 8
+    for k, (lo, hi) in enumerate([(-7, 5), (1 << 30, 4), (3, 1 << 30), (-(1 << 31), (1 << 31) - 1)]):
+        b, sp = live[2 * k].tolist()
+        grid[idx[b, sp, 0]], grid[idx[b, sp, 1]] = lo, hi
+    idx[live[-1][0], live[-1][1]] = torch.tensor([-3, 1 << 30], dtype=torch.int32)
+    rows_idx, valid = twk._lanes(*twk._grid_spans(idx, grid, pk.shape[0]),
+                                 tr.reuse_spec.cap)
+    assert int(rows_idx.min()) >= 0 and int(rows_idx.max()) < pk.shape[0]
+    assert valid.any()
+    out = tmw.field_window(tr.q_packed, pk, grid, idx, tr.cfg, tr.reuse_spec)
+    assert torch.isfinite(out).all() and float(out.max()) > 0

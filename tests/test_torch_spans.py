@@ -125,7 +125,7 @@ def test_spans_name_the_jax_window_rows(scene):
     np.testing.assert_array_equal(spans[:, :, 1].sum(1), w_len)
     for blk in np.nonzero(w_len)[0]:
         want = trip[w_start[blk]:w_start[blk] + w_len[blk]]
-        assert (want < te.spec.n_src - 1).all()
+        assert (want < je.spec.n_src - 1).all()
         np.testing.assert_array_equal(
             np.sort(_span_rows(spans[blk], te.spec.n_layout)), np.sort(want))
 

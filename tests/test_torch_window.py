@@ -45,8 +45,10 @@ def _engines(cfg_kw, scene, fluid_fn=None, **kw):
 @pytest.mark.parametrize("case", ["dam_small", "drop_small", "pool_default",
                                   "dam_cap128"])
 def test_relayout_integer_arrays_equal(case):
-    """layout_src, trip_src, w_start, w_len, flen, T and overflow equal the
-    JAX relayout's exactly (dtype included), and so does the packed state."""
+    """layout_src, w_start, w_len, flen, T and overflow equal the JAX
+    relayout's exactly (dtype included), and so does the packed state; the
+    port builds no trip_src, and its span table names the rows of every
+    window of JAX's."""
     cfg_kw, scene, kw = {
         "dam_small": ({}, "dam", SMALL),
         # empty grid rows between the drop and the floor: zero-length runs
@@ -60,15 +62,14 @@ def test_relayout_integer_arrays_equal(case):
     jpk, jctx, jov = jax.jit(je._relayout)(jnp.asarray(pk))
     tpk, tctx, tov = te._relayout(torch.tensor(pk))
     np.testing.assert_array_equal(tpk.numpy(), np.asarray(jpk))
-    for f in ("layout_src", "trip_src", "w_start", "w_len", "flen", "T",
-              "overflow"):
+    for f in ("layout_src", "w_start", "w_len", "flen", "T", "overflow"):
         a, b = np.asarray(getattr(jctx, f)), getattr(tctx, f).numpy()
         assert b.dtype == a.dtype == np.int32, f
         np.testing.assert_array_equal(b, a, err_msg=f)
     assert int(tov) == int(jov)
     if case == "dam_cap128":
         assert int(tov) > 0        # window truncation is counted
-    # the span table names the same rows as every block's window of
+    # the span table names the same rows as every block's window of JAX's
     # trip_src (row-major instead of column-major), bitwise
     spans = tctx.spans.numpy()
     n_layout, cover = te.spec.n_layout, te.spec.n_spans // 2
@@ -76,11 +77,11 @@ def test_relayout_integer_arrays_equal(case):
     assert spans.shape == (n_layout // te.spec.qb, 2 * cover, 2)
     w_start = tctx.w_start.numpy().reshape(-1)
     w_len = tctx.w_len.numpy().reshape(-1)
-    trip = tctx.trip_src.numpy()
+    trip = np.asarray(jctx.trip_src)
     np.testing.assert_array_equal(spans[:, :, 1].sum(1), w_len)
     assert (spans[:, :, 1] >= 0).all()
     assert (w_len > 0).any() and (spans[:, :, 1] == 0).any()
-    inert = te.spec.n_src - 1
+    inert = je.spec.n_src - 1
     for b in np.nonzero(w_len)[0]:
         rows = [np.arange(s, s + n) + (n_layout if k >= cover else 0)
                 for k, (s, n) in enumerate(spans[b])]
