@@ -28,24 +28,32 @@ Phases, each printing its own line with its seconds:
    host sync, no ``index_select``, no ``index`` and no ``cat``; that a
    rendered frame launches no ``index_select`` and no ``cat`` and costs the
    host no wait, and that a relayout runs one ``cummax``;
-5. the 3k-particle C golden drop, all 2000 steps through the kernels;
-6. the 1M pool: 64 ticks at resort_every=64, after one warm-up group;
-7. render: render_from_frame ms per frame at 64x128 and 256x128 on the
+5. dd: the same 100k pool as a slab decomposition (parallel/domain_window
+   .WindowDomain) of 1, 2 and 4 slabs under LocalComm: 15 exact steps
+   from zeroed accelerations against the single engine started the same
+   way, exactly d density and d forces launches a step, no overflow in
+   any column; one slab of the 4-slab run's relayout through both kernels
+   against their plain versions; ms/step (CUDA events, median of 5 runs)
+   beside the single engine's, and host syncs a step by the profiler; the
+   3k C golden through 4 slabs to step 200 at the JAX DD gate;
+6. the 3k-particle C golden drop, all 2000 steps through the kernels;
+7. the 1M pool: 64 ticks at resort_every=64, after one warm-up group;
+8. render: render_from_frame ms per frame at 64x128 and 256x128 on the
    100k and 1M pools' last relayout frames (CUDA events, 20 frames after
    one warm-up), render overflow 0;
-8. golden_render: WindowRenderer.render through the field kernel on the C
+9. golden_render: WindowRenderer.render through the field kernel on the C
    golden positions (269 drop and 3k drop) against the C framebuffers;
-9. runner, the live path a user runs: ``cli run`` on the 100k pool with a
+10. runner, the live path a user runs: ``cli run`` on the 100k pool with a
    file display, about 30 dispatches of one 60 Hz frame each: one frame
    written and one field launch per dispatch, no recovery, overflow and
    stale 0, the floor row lit in every frame, the launch counters set to
    0 just before and read just after; then ``cli bench`` on the 1M pool
    with rendering;
-10. runner_recovery: ``cli run`` on the 100k pool at the CLI defaults,
+11. runner_recovery: ``cli run`` on the 100k pool at the CLI defaults,
    where the startup jets overflow the cap: at least one recovery, one
    field launch per dispatch run (replays included), one frame written per
    dispatch less the one each revert drops, overflow and stale 0 at the end;
-11. probes: the two probe scripts as a user runs them (``python -m
+12. probes: the two probe scripts as a user runs them (``python -m
    pi_sph_fluid_tpu_torch.tools.unaligned_probe`` / ``.span_dma_probe``,
    their ``main()`` with the launch counters set to 0 just before and read
    just after), then each probe kernel against its plain version at every
@@ -54,9 +62,9 @@ Phases, each printing its own line with its seconds:
    profiler's device time, bytes, FLOPs and the bound, the copy's library
    call (``src[:, idx]``) by events and by device time, and the
    aligned/unaligned, B/A and C/A ratios;
-12. bench: ``python -m pi_sph_fluid_tpu_torch.bench`` in a subprocess at its
+13. bench: ``python -m pi_sph_fluid_tpu_torch.bench`` in a subprocess at its
    defaults; its JSON line must show overflow, stale and render overflow 0;
-13. oracle: the reference backend on the card: the 269 drop through step
+14. oracle: the reference backend on the card: the 269 drop through step
    500 against the C golden at test_parity.py's gates, with no window
    kernel launched, then ``cli run --backend reference`` with a file
    display, frames written.
@@ -72,6 +80,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -91,6 +100,7 @@ from pi_sph_fluid_tpu_torch.models import engine_v3  # noqa: E402
 from pi_sph_fluid_tpu_torch.ops.window import _build  # noqa: E402
 from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk  # noqa: E402
 from pi_sph_fluid_tpu_torch.models import simulation  # noqa: E402
+from pi_sph_fluid_tpu_torch.parallel import LocalComm, WindowDomain  # noqa: E402
 from pi_sph_fluid_tpu_torch.render import metaballs_window as mw  # noqa: E402
 from pi_sph_fluid_tpu_torch.tools import launch_probe  # noqa: E402
 from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp  # noqa: E402
@@ -114,6 +124,15 @@ SQUEEZE = 0.6           # the pool squeezed to this: windows of several chunks
 RECOVERY_DISPATCHES = 24  # cli run at the defaults: 0.4 s, past the startup jets
 BENCH_TIMEOUT = 600     # seconds for the bench subprocess
 ORACLE_GATES = {100: (5e-6, 5e-5), 200: (1e-5, 1e-4), 500: (1e-4, 5e-3)}
+DD_SLABS = (1, 2, 4)
+DD_STEPS = 15           # test_parallel_window.py:41-64
+DD_TIMED_STEPS, DD_RUNS = 8, 5
+DD_GOLDEN_STEPS = 200   # test_parity_3k.py:149-191
+# the DD against the single engine after DD_STEPS (test_parallel_window.py:
+# 60-64): |dx|, |dy| m, |du| m/s, and rho within rtol + atol
+DD_GATES = dict(xy=1e-6, u=1e-5, rho_rtol=1e-5, rho_atol=1e-2)
+# the DD against the 3k C golden at step 200 (test_parity_3k.py:185-191)
+DD_GOLDEN_GATES = dict(xy=5e-5, uv=3e-3, rho_rel=1e-3)
 # wrapper (with its launch counter), the TPU kernel it replaces and its source
 WINDOW_SRC = "pi_sph_fluid_tpu_torch/csrc/window_kernels.cu"
 PROBE_SRC = "pi_sph_fluid_tpu_torch/csrc/probe_kernels.cu"
@@ -256,6 +275,54 @@ def _check_state(sim, stats, what: str) -> None:
     assert speed < 40.0, f"{what}: max speed {speed} m/s breaks the C/10 bound"
 
 
+def hold_physics(eng, pk, ctx, dense: bool = False) -> dict:
+    """The density and the forces kernel against their plain versions on
+    one relayout ``(pk, ctx)`` of ``eng`` (compare_physics has the
+    tolerances; ``dense`` widens the absolute tolerance of acc to 1e-6 of
+    max |acc|, for states whose pressures cancel in the sum).  Raises on a
+    disagreement; returns the kernels' arguments and the largest
+    differences."""
+    cfg, spec = eng.cfg, eng.spec
+    assert torch.equal(ctx.spans[:, :, 1].sum(1), ctx.w_len.reshape(-1)), \
+        "span lengths do not sum to w_len"
+    d_args = (pk, eng._b_geo_d, ctx.spans, cfg, spec)
+    g8k, rpk = wk.density_window(*d_args)
+    g8p, rpp = wk.density_window_plain(*d_args)
+    _sync()
+    rho_k, rho_p = rpk[:, 0].double(), rpp[:, 0].double()
+    rel_rho = float(((rho_k - rho_p).abs() / rho_p.abs().clamp_min(1e-30)).max())
+    assert rel_rho <= 1e-6, f"density: max rel d_rho {rel_rho}"
+    p_cond = 7.0 * cfg.tait_b * (rho_p / cfg.rho_0) ** 7 * 1e-6
+    dp = (rpk[:, 1].double() - rpp[:, 1].double()).abs()
+    assert bool((dp <= 0.05 + 1e-4 * rpp[:, 1].double().abs() + p_cond).all()), \
+        f"density: max |d_p| {float(dp.max())}"
+    assert torch.equal(g8k[:, [0, 1, 2, 3, 4, 7]], g8p[:, [0, 1, 2, 3, 4, 7]])
+
+    f_args = (pk, g8p, rpp, eng._b_geo_f, ctx.spans, G, cfg, spec,
+              eng.half_dt, 0.97)
+    pkk, acck = wk.forces_window(*f_args)
+    pkp, accp = wk.forces_window_plain(*f_args)
+    _sync()
+    dacc = (acck - accp).abs()
+    atol = max(2e-4, 1e-6 * float(accp.abs().max())) if dense else 2e-4
+    assert bool((dacc <= atol + 2e-5 * accp.abs()).all()), \
+        f"forces: max |d_acc| {float(dacc.max())}"
+    uv_k, uv_p = pkk[:, 2:4], pkp[:, 2:4]
+    uv_bound = (eng.half_dt * (atol + 2e-5 * accp.abs())
+                + 2 * torch.finfo(torch.float32).eps * uv_p.abs())
+    duv = (uv_k - uv_p).abs()
+    assert bool((duv <= uv_bound).all()), f"forces: max |d_uv| {float(duv.max())}"
+    assert torch.equal(pkk[:, [0, 1, 4, 5, 6, 7]], pkp[:, [0, 1, 4, 5, 6, 7]]), \
+        "forces: a copied pk_next column differs"
+    pk0, _ = wk.forces_window(pk, g8p, rpp, eng._b_geo_f, ctx.spans, G, cfg,
+                              spec, 0.0, 1.0)
+    assert torch.equal(pk0[:, 2:4], pk[:, 2:4]), "priming pass moved u, v"
+
+    return dict(d_args=d_args, f_args=f_args, rel_rho=rel_rho,
+                d_rho=float((rho_k - rho_p).abs().max()), d_p=float(dp.max()),
+                d_acc=float(dacc.max()), d_uv=float(duv.max()))
+
+
 def compare_physics(eng, fluid, squeeze: float = 1.0) -> dict:
     """The density and the forces kernel against their plain versions on one
     relayout of the pool, through the relayout's span table, with seeded
@@ -279,62 +346,28 @@ def compare_physics(eng, fluid, squeeze: float = 1.0) -> dict:
         for k in ("u", "v")})
     pk, ctx, ov = eng._relayout(eng._initial_packed(fluid))
     assert int(ov) == 0, f"relayout overflow {int(ov)}"
-    assert torch.equal(ctx.spans[:, :, 1].sum(1), ctx.w_len.reshape(-1)), \
-        "span lengths do not sum to w_len"
     n_bnd = eng._b_geo_d.shape[0]
     in_reach = _pairs_in_reach(pk, eng._b_geo_d, ctx.spans, cfg, spec)
-    d_args = (pk, eng._b_geo_d, ctx.spans, cfg, spec)
-    g8k, rpk = wk.density_window(*d_args)
-    g8p, rpp = wk.density_window_plain(*d_args)
-    _sync()
-    rho_k, rho_p = rpk[:, 0].double(), rpp[:, 0].double()
-    rel_rho = float(((rho_k - rho_p).abs() / rho_p.abs().clamp_min(1e-30)).max())
-    assert rel_rho <= 1e-6, f"density: max rel d_rho {rel_rho}"
-    p_cond = 7.0 * cfg.tait_b * (rho_p / cfg.rho_0) ** 7 * 1e-6
-    dp = (rpk[:, 1].double() - rpp[:, 1].double()).abs()
-    assert bool((dp <= 0.05 + 1e-4 * rpp[:, 1].double().abs() + p_cond).all()), \
-        f"density: max |d_p| {float(dp.max())}"
-    assert torch.equal(g8k[:, [0, 1, 2, 3, 4, 7]], g8p[:, [0, 1, 2, 3, 4, 7]])
-
-    f_args = (pk, g8p, rpp, eng._b_geo_f, ctx.spans, G, cfg, spec,
-              eng.half_dt, 0.97)
-    pkk, acck = wk.forces_window(*f_args)
-    pkp, accp = wk.forces_window_plain(*f_args)
-    _sync()
-    dacc = (acck - accp).abs()
-    atol = 2e-4 if squeeze == 1.0 else max(2e-4, 1e-6 * float(accp.abs().max()))
-    assert bool((dacc <= atol + 2e-5 * accp.abs()).all()), \
-        f"forces: max |d_acc| {float(dacc.max())}"
-    uv_k, uv_p = pkk[:, 2:4], pkp[:, 2:4]
-    uv_bound = (eng.half_dt * (atol + 2e-5 * accp.abs())
-                + 2 * torch.finfo(torch.float32).eps * uv_p.abs())
-    duv = (uv_k - uv_p).abs()
-    assert bool((duv <= uv_bound).all()), f"forces: max |d_uv| {float(duv.max())}"
-    assert torch.equal(pkk[:, [0, 1, 4, 5, 6, 7]], pkp[:, [0, 1, 4, 5, 6, 7]]), \
-        "forces: a copied pk_next column differs"
-    pk0, _ = wk.forces_window(pk, g8p, rpp, eng._b_geo_f, ctx.spans, G, cfg,
-                              spec, 0.0, 1.0)
-    assert torch.equal(pk0[:, 2:4], pk[:, 2:4]), "priming pass moved u, v"
-
+    h = hold_physics(eng, pk, ctx, dense=squeeze != 1.0)
+    d_args, f_args = h["d_args"], h["f_args"]
     out = {
         "density_window": dict(
-            max_abs_err=float((rho_k - rho_p).abs().max()),
+            max_abs_err=h["d_rho"],
             ms=event_ms(lambda: wk.density_window(*d_args), 50),
             plain_ms=event_ms(lambda: wk.density_window_plain(*d_args), 5),
             device_ms=_device_ms(lambda: wk.density_window(*d_args), "density_window"),
             **_span_bound("density_window", spec, ctx.spans, n_bnd, in_reach)),
         "forces_window": dict(
-            max_abs_err=float(dacc.max()),
+            max_abs_err=h["d_acc"],
             ms=event_ms(lambda: wk.forces_window(*f_args), 50),
             plain_ms=event_ms(lambda: wk.forces_window_plain(*f_args), 5),
             device_ms=_device_ms(lambda: wk.forces_window(*f_args), "forces_window"),
             **_span_bound("forces_window", spec, ctx.spans, n_bnd, in_reach))}
     print(f"  cap {spec.cap} windows: mean {float(ctx.w_len.float().mean()):.1f} lanes, "
           f"longest {int(ctx.w_len.max())}", flush=True)
-    print(f"  cap {spec.cap} density: max rel d_rho {rel_rho:.3e}, "
-          f"max |d_p| {float(dp.max()):.3e} Pa; forces: max |d_acc| "
-          f"{float(dacc.max()):.3e} m/s^2, max |d_uv| {float(duv.max()):.3e} m/s",
-          flush=True)
+    print(f"  cap {spec.cap} density: max rel d_rho {h['rel_rho']:.3e}, "
+          f"max |d_p| {h['d_p']:.3e} Pa; forces: max |d_acc| "
+          f"{h['d_acc']:.3e} m/s^2, max |d_uv| {h['d_uv']:.3e} m/s", flush=True)
     for name, r in out.items():
         print(f"  cap {spec.cap} {name}: kernel {r['ms']:.4f} ms, device "
               f"{r['device_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
@@ -491,6 +524,126 @@ def check_frame_ops(eng, sim, frame) -> dict:
                 relayout_cummax=cummax)
 
 
+def _median_ms(fn, n_steps: int, runs: int = DD_RUNS) -> tuple:
+    """(median, every run) of the ms a step of ``fn()``, a call of
+    ``n_steps`` steps, by CUDA events around each call, after one
+    warm-up."""
+    fn()
+    times = []
+    for _ in range(runs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n_steps)
+    return statistics.median(times), times
+
+
+def _dd_errors(got, want) -> dict:
+    """The largest differences of two FluidStates in id order."""
+    d = {f: float((getattr(got, f) - getattr(want, f)).abs().max()) for f in "xyuv"}
+    d["rho_excess"] = float(((got.rho - want.rho).abs()
+                             - DD_GATES["rho_rtol"] * want.rho.abs()).max())
+    return d
+
+
+def run_dd(results: dict) -> dict:
+    """The 100k pool as a slab decomposition of 1, 2 and 4 slabs on this
+    card, each against the single engine started the same way (primed, then
+    its accelerations zeroed, as a domain starts from ``init``): DD_STEPS
+    exact steps, the DD_GATES, n_valid whole and every overflow column 0,
+    and exactly d density and d forces launches a step with the counters
+    set to 0 just before and read just after; one slab of the 4-slab run's
+    next relayout through both kernels against their plain versions
+    (hold_physics); ms/step of each and of the single engine, and host
+    syncs, device busy ms and kernel launches a step of each (the
+    profiler's, over 2 steps); then the 3k C golden through 4 slabs.  Every
+    measurement is printed before any gate is asserted."""
+    cfg = T.SPHConfig(r=math.sqrt(6.35 / N_POOL))
+    fluid, braw = T.build_pool_scene(cfg, DEV)
+    b, bg = T.prepare_boundary(braw, cfg)
+    eng = T.WindowEngine(cfg, b, bg, fluid.n, DEV)
+    sim0 = eng.prime(fluid, G)
+    sim0 = sim0._replace(au=torch.zeros_like(sim0.au), av=torch.zeros_like(sim0.av))
+    single = eng.make_multi_step()
+    want = eng.unpad(single(sim0, _gravity(DD_STEPS))[0])
+    out, failed = {}, []
+    out["single_ms_per_step"], runs = _median_ms(
+        lambda: single(sim0, _gravity(DD_TIMED_STEPS)), DD_TIMED_STEPS)
+    out["single_runs_ms"] = json.dumps(runs)
+    prof = device_breakdown(lambda: single(sim0, _gravity(2)), DEV)
+    out["single_syncs_per_step"] = prof["syncs"] / 2
+    out["single_device_busy_ms_per_step"] = prof["busy_s"] * 1e3 / 2
+    out["single_launches_per_step"] = sum(r[2] for r in prof["rows"]) / 2
+    launches = {}
+    for d in DD_SLABS:
+        dd = WindowDomain(cfg, b, bg, fluid.n, LocalComm(d), DEV)
+        state0 = dd.init(fluid)
+        multi = dd.make_multi_step()
+        _reset_counts()
+        state, st = multi(state0, _gravity(DD_STEPS))
+        counts = _counts()
+        launches[d] = counts
+        err = _dd_errors(dd.gather(state), want)
+        print(f"  dd {d} slabs: k_cols {dd.k_cols}, slab_cap {dd.slab_cap}, halo_cap "
+              f"{dd.halo_cap}, mig_cap {dd.mig_cap}, nb_cap {dd.nb_cap}, n_layout "
+              f"{dd.spec.n_layout}; after {DD_STEPS} steps against the single engine "
+              f"{json.dumps(err)}; launches {json.dumps(counts)}", flush=True)
+        checks = {
+            "x, y": max(err["x"], err["y"]) <= DD_GATES["xy"],
+            "u": err["u"] <= DD_GATES["u"],
+            "rho": err["rho_excess"] <= DD_GATES["rho_atol"],
+            "n_valid": bool((st["n_valid"] == fluid.n).all()),
+            "overflow": int(st["overflow"].max()) == 0,
+            "overflow_by": int(st["overflow_by"].max()) == 0,
+            "launches": counts["density_window"] == counts["forces_window"] == d * DD_STEPS
+            and all(counts[k] == 0 for k in KERNELS if k not in SIM_KERNELS[:2]),
+            "finite": bool(torch.isfinite(state.fluid.x).all()),
+        }
+        failed += [f"{d} slabs: {k}" for k, ok in checks.items() if not ok]
+        out[f"dd{d}_err"] = json.dumps(err)
+        out[f"dd{d}_ms_per_step"], runs = _median_ms(
+            lambda: multi(state0, _gravity(DD_TIMED_STEPS)), DD_TIMED_STEPS)
+        out[f"dd{d}_runs_ms"] = json.dumps(runs)
+        prof = device_breakdown(lambda: multi(state0, _gravity(2)), DEV)
+        out[f"dd{d}_syncs_per_step"] = prof["syncs"] / 2
+        out[f"dd{d}_device_busy_ms_per_step"] = prof["busy_s"] * 1e3 / 2
+        out[f"dd{d}_launches_per_step"] = sum(r[2] for r in prof["rows"]) / 2
+        if d == 4:
+            eng1, pk, ctx = dd.layouts(state)[1]
+            h = hold_physics(eng1, pk, ctx)
+            out["slab1_kernels_vs_plain"] = json.dumps(
+                {k: h[k] for k in ("rel_rho", "d_p", "d_acc", "d_uv")})
+        del dd, state, state0
+    for name in SIM_KERNELS[:2]:
+        results[name]["dd_launches"] = {d: c[name] for d, c in launches.items()}
+
+    golden = np.load(HERE / "tests" / "fixtures" / "golden_drop_3k.npz")
+    cfg3 = T.SPHConfig(r=0.0226)
+    fluid3, braw3 = T.build_drop_scene(cfg3, DEV)
+    b3, bg3 = T.prepare_boundary(braw3, cfg3)
+    dd = WindowDomain(cfg3, b3, bg3, fluid3.n, LocalComm(4), DEV)
+    state, st = dd.make_multi_step()(dd.init(fluid3), _gravity(DD_GOLDEN_STEPS))
+    gs = golden["states"][DD_GOLDEN_STEPS // 100]
+    assert int(golden["steps"][DD_GOLDEN_STEPS // 100]) == DD_GOLDEN_STEPS
+    ours = dd.gather(state)
+    gerr = {f: float(np.abs(getattr(ours, f).cpu().numpy() - gs[:, i]).max())
+            for i, f in enumerate("xyuv")}
+    gerr["rho_rel"] = float((np.abs(ours.rho.cpu().numpy() - gs[:, 5]) / gs[:, 5]).max())
+    out["golden_3k_4_slabs_step200"] = json.dumps(gerr)
+    print(f"  dd 4 slabs, 3k C golden at step {DD_GOLDEN_STEPS}: {json.dumps(gerr)}",
+          flush=True)
+    if not (max(gerr["x"], gerr["y"]) <= DD_GOLDEN_GATES["xy"]
+            and max(gerr["u"], gerr["v"]) <= DD_GOLDEN_GATES["uv"]
+            and gerr["rho_rel"] <= DD_GOLDEN_GATES["rho_rel"]):
+        failed.append("3k golden")
+    if int(st["overflow"].max()) or not bool((st["n_valid"] == fluid3.n).all()):
+        failed.append("3k golden: overflow or n_valid")
+    assert not failed, f"dd: {failed}"
+    return out
+
+
 def run_golden() -> dict:
     """The 3k C golden drop through the kernels at the gates of
     tests/test_parity_3k.py:129 (cap=384, as the JAX engine's gate)."""
@@ -555,6 +708,9 @@ def run() -> dict:
     pool = run_pool(eng, fluid)
     frames = {"100k": (eng,) + pool.pop("last")}
     _phase("pool_100k", t0, n_fluid=fluid.n, **pool)
+
+    t0 = time.perf_counter()
+    _phase("dd", t0, **run_dd(results))
 
     t0 = time.perf_counter()
     worst = run_golden()

@@ -81,7 +81,9 @@ def _make_sink(args, shape: tuple[int, int]):
     if args.display == "terminal":
         return AsyncSink(TerminalSink(rows, cols))
     if args.display.startswith("file:"):
-        return AsyncSink(FileSink(args.display[5:]))
+        # no AsyncSink: push is an O(1 KB) buffered append, and a record of
+        # the run keeps every frame (one a dispatch, less one a revert)
+        return FileSink(args.display[5:])
     if args.display.startswith("png:"):
         return AsyncSink(PngSink(args.display[4:], rows, cols))
     if args.display.startswith("gif:"):

@@ -2,12 +2,15 @@
 
 ``to_torch`` turns the fields of a JAX ``FluidState``, ``BoundaryState``,
 ``GridContext`` or ``PackedSim(packed, ids, au, av)`` (or any mapping of
-field name to array) into the port's NamedTuple of tensors on ``device``;
-``to_numpy`` gives the fields back as numpy arrays, which the JAX package's
-constructors accept; ``frame`` rebuilds the port's relayout ``Frame`` for a
-layout-fresh JAX state and checks it against the JAX frame's ``T``, so that
-both renderers can draw from the same relayout.  Nothing here imports JAX:
-``np.asarray`` reads a JAX array through the buffer protocol.
+field name to array) into the port's NamedTuple of tensors on ``device``,
+and ``domain_state`` a JAX ``DomainState`` (the flat (d * slab_cap,) slab
+arrays, the same layout in both packages); ``to_numpy`` gives the fields
+back as numpy arrays (a nested NamedTuple as a nested dict), which the JAX
+package's constructors accept; ``frame`` rebuilds the port's relayout
+``Frame`` for a layout-fresh JAX state and checks it against the JAX
+frame's ``T``, so that both renderers can draw from the same relayout.
+Nothing here imports JAX: ``np.asarray`` reads a JAX array through the
+buffer protocol.
 """
 
 from __future__ import annotations
@@ -18,10 +21,11 @@ import torch
 from .models.engine_v3 import PackedSim
 from .ops.grid import GridContext, cell_ids, csr_starts
 from .ops.window.triple import Frame, build_frame, start_grid
+from .parallel.domain import DomainState
 from .state import BoundaryState, FluidState
 
 __all__ = ["to_torch", "to_numpy", "fluid_state", "boundary_state",
-           "grid_context", "packed_sim", "frame"]
+           "grid_context", "packed_sim", "domain_state", "frame"]
 
 
 def _field(src, name):
@@ -36,8 +40,10 @@ def to_torch(cls, src, device):
 
 
 def to_numpy(tree) -> dict:
-    """{field: numpy array} of a port NamedTuple of tensors."""
-    return {f: t.detach().cpu().numpy() for f, t in zip(tree._fields, tree)}
+    """{field: numpy array} of a port NamedTuple of tensors; a field that is
+    itself a NamedTuple (``DomainState.fluid``) becomes a nested dict."""
+    return {f: to_numpy(t) if hasattr(t, "_fields") else t.detach().cpu().numpy()
+            for f, t in zip(tree._fields, tree)}
 
 
 def fluid_state(src, device) -> FluidState:
@@ -54,6 +60,13 @@ def grid_context(src, device) -> GridContext:
 
 def packed_sim(src, device) -> PackedSim:
     return to_torch(PackedSim, src, device)
+
+
+def domain_state(src, device) -> DomainState:
+    """The port's ``DomainState`` of a JAX one (fields as ``to_torch``)."""
+    return DomainState(fluid=fluid_state(_field(src, "fluid"), device),
+                       **{f: torch.as_tensor(np.array(_field(src, f)), device=device)
+                          for f in ("ids", "au", "av")})
 
 
 def frame(engine, sim: PackedSim, src) -> Frame:

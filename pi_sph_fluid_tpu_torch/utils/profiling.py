@@ -154,12 +154,14 @@ def host_us(fn, reps: int = 200) -> float:
     return t / reps * 1e6
 
 
-def kernel_device_ms(fn, name: str, device, n: int = 20) -> float:
-    """The profiler's device time per launch of the CUDA kernels whose name
-    contains ``name``, averaged over the launches it recorded of ``n`` calls
-    of ``fn``.  It records some, not all: on an H100 it missed the first
-    launches of a fast loop, and late in a long process it kept 8 of 20, so
-    the calls wait 50 ms first and at least one must be recorded."""
+def _traced_rows(fn, device, n: int, keep, tries: int = 3) -> list:
+    """The profiler's device rows ``(name, seconds, launches)`` that
+    ``keep(name)`` selects, of ``n`` calls of ``fn`` after one warm-up.  The
+    device trace records some launches, not all: on an H100 it missed the
+    first launches of a fast loop, late in a long process it kept 8 of 20,
+    and once it kept none, so the calls wait 50 ms first and a trace that
+    kept none of the selected kernels is taken again, ``tries`` times in
+    all."""
 
     def calls():
         time.sleep(0.05)
@@ -167,12 +169,22 @@ def kernel_device_ms(fn, name: str, device, n: int = 20) -> float:
             fn()
 
     fn()
-    b = device_breakdown(calls, device)
-    rows = [(sec, cnt) for key, sec, cnt in b["rows"] if name in key]
-    count = sum(c for _, c in rows)
+    for _ in range(tries):
+        rows = [r for r in device_breakdown(calls, device)["rows"] if keep(r[0])]
+        if rows:
+            break
+    return rows
+
+
+def kernel_device_ms(fn, name: str, device, n: int = 20) -> float:
+    """The profiler's device time per launch of the CUDA kernels whose name
+    contains ``name``, averaged over the launches it recorded of ``n`` calls
+    of ``fn`` (at least one must be recorded; ``_traced_rows``)."""
+    rows = _traced_rows(fn, device, n, lambda key: name in key)
+    count = sum(c for _, _, c in rows)
     if not 1 <= count <= n:
-        raise RuntimeError(f"{name}: {count} launches recorded of {n}: {b['rows'][:5]}")
-    return sum(sec for sec, _ in rows) * 1e3 / count
+        raise RuntimeError(f"{name}: {count} launches recorded of {n}: {rows[:5]}")
+    return sum(sec for _, sec, _ in rows) * 1e3 / count
 
 
 def call_device_ms(fn, device, n: int = 20) -> float:
@@ -180,14 +192,7 @@ def call_device_ms(fn, device, n: int = 20) -> float:
     CUDA kernels once (one PyTorch library call): the sum over its kernels
     of the profiler's mean time per recorded launch, which stays right when
     the device trace drops launches."""
-
-    def calls():
-        time.sleep(0.05)
-        for _ in range(n):
-            fn()
-
-    fn()
-    rows = device_breakdown(calls, device)["rows"]
+    rows = _traced_rows(fn, device, n, lambda key: True)
     if not rows or any(cnt > n for _, _, cnt in rows):
         raise RuntimeError(f"not one launch per kernel and call: {rows[:5]}")
     return sum(sec / cnt for _, sec, cnt in rows) * 1e3

@@ -144,9 +144,10 @@ def test_convert_roundtrip():
 
 def test_port_imports_no_jax_and_cpu_path_launches_nothing():
     """In a fresh interpreter the port (the renderer, the host loop, the
-    CLI, the bench, the probes and the jnp oracle included) leaves JAX out
-    of sys.modules, and a primed CPU run, a render and both probes go
-    through the plain versions only (counters at 0)."""
+    CLI, the bench, the probes, the jnp oracle and the slab decomposition
+    included) leaves JAX out of sys.modules, and a primed CPU run, a render,
+    a 2-slab step and both probes go through the plain versions only
+    (counters at 0)."""
     code = (
         "import sys, torch\n"
         "import pi_sph_fluid_tpu_torch as T\n"
@@ -155,6 +156,7 @@ def test_port_imports_no_jax_and_cpu_path_launches_nothing():
         "from pi_sph_fluid_tpu_torch.models import simulation\n"
         "from pi_sph_fluid_tpu_torch.ops import forces, sph_operators\n"
         "from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk\n"
+        "from pi_sph_fluid_tpu_torch.parallel import comm, domain, domain_window\n"
         "from pi_sph_fluid_tpu_torch.render import metaballs, metaballs_window as mw\n"
         "from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp\n"
         "from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up\n"
@@ -167,6 +169,8 @@ def test_port_imports_no_jax_and_cpu_path_launches_nothing():
         "s, st, fr = e.make_multi_step(return_frame=True)(e.prime(f, (0.0, -9.81)),\n"
         "                                                 [(0.0, -9.81)])\n"
         "fb, ov = T.WindowRenderer(e).render_from_frame(s, fr)\n"
+        "dd = domain_window.WindowDomain(cfg, b, g, f.n, comm.LocalComm(2), 'cpu', tq=32, qb=8)\n"
+        "dd.make_step()(dd.init(f), (0.0, -9.81))\n"
         "simulation.make_multi_step(cfg, b, g)(simulation.prime(f, b, g, (0.0, -9.81), cfg),\n"
         "                                      [(0.0, -9.81)])\n"
         "src, al, un = up.make_starts(4096, 2)\n"

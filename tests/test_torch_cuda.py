@@ -311,3 +311,32 @@ def test_span_density_kernel_any_lane_count(spans, span_cap, qb, tq):
     scale = float(want.abs().max())
     assert scale > 0.0
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_window_domain_launches_both_kernels_once_a_slab():
+    """A 3-slab WindowDomain of a 20k pool on the card: each step launches
+    the density and the forces kernel once a slab (no plain fallback), and
+    5 steps land within test_parallel_window.py's gates (1e-6 m, 1e-5 m/s)
+    of the same domain on the CPU, whose wrappers run the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    import pi_sph_fluid_tpu_torch as T
+    from pi_sph_fluid_tpu_torch.parallel import LocalComm, WindowDomain
+
+    cfg = T.SPHConfig(r=(6.35 / 20_000) ** 0.5)
+    fluid, braw = T.build_pool_scene(cfg, "cpu")
+    b, bg = T.prepare_boundary(braw, cfg)
+    g5 = np.tile(np.float32(G), (5, 1))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        dd = WindowDomain(cfg, b, bg, fluid.n, LocalComm(3), dev)
+        before = (wk.density_window.launches, wk.forces_window.launches)
+        state, st = dd.make_multi_step()(dd.init(fluid), g5)
+        after = (wk.density_window.launches, wk.forces_window.launches)
+        assert after == tuple(n + (15 if dev == "cuda" else 0) for n in before), (dev, after)
+        assert int(st["overflow"].max()) == 0 and int(st["n_valid"][-1]) == fluid.n
+        out[dev] = dd.gather(state)
+    for f, tol in (("x", 1e-6), ("y", 1e-6), ("u", 1e-5), ("v", 1e-5)):
+        torch.testing.assert_close(getattr(out["cuda"], f).cpu(), getattr(out["cpu"], f),
+                                   rtol=0, atol=tol)

@@ -206,19 +206,18 @@ def test_jax_cli_checkpoint_resumes_in_port(tmp_path, capsys):
 
 
 def test_cli_run_and_bench_json(tmp_path, capsys):
-    """`run` returns its RunResult and pushes one frame per dispatch through
-    the CLI's AsyncSink, which keeps the drop-on-busy contract of the JAX
-    package (io/display.py): a frame that finds the writer thread busy
-    replaces the one still queued, so under load the 2 dispatches may write
-    1 frame.  The file holds whole 1024-byte frames, at least 1 and at most
-    2.  `bench` prints one JSON line naming its device."""
+    """`run` returns its RunResult and writes one frame per dispatch: the
+    file display is not behind the CLI's AsyncSink (whose live displays drop
+    a frame that finds the writer busy, as the JAX package's do), so the 2
+    dispatches write exactly 2 whole 1024-byte frames.  `bench` prints one
+    JSON line naming its device."""
     path = tmp_path / "f.bin"
     res = cli.main(["run", "--device", "cpu", "--scene", "drop", "--display",
                     f"file:{path}", "--seconds", repr(16 * DT),
                     "--steps-per-dispatch", "8"])
     assert res.steps == 16 and res.reporter.total_overflow == 0
     size = path.stat().st_size
-    assert size % 1024 == 0 and 1024 <= size <= 2 * 1024, size
+    assert size == 2 * 1024, size
     capsys.readouterr()
     out = cli.main(["bench", "--device", "cpu", "--n", "2000", "--steps", "8",
                     "--render"])

@@ -415,7 +415,7 @@ def test_cli_backend_reference(tmp_path, capsys):
                     "--steps-per-dispatch", "4", "--save-state", str(ck)])
     assert res.steps == 8 and res.recoveries == 0 and res.reporter.total_overflow == 0
     size = path.stat().st_size
-    assert size % 1024 == 0 and 1024 <= size <= 2 * 1024
+    assert size == 2 * 1024, size   # one frame a dispatch
     saved = np.load(ck)
     assert {"fluid.x", "ids", "au", "av"} <= set(saved.files)
     assert sorted(saved["ids"]) == list(range(269))

@@ -3,7 +3,8 @@
 package's step-500 gate (test_parity_3k.py:129: 3e-6 m, 5e-4 m/s, rho
 rtol 3e-4), through the kernels' plain versions on the CPU.  cap=384 as
 in the JAX engine's 3k gate: the default 256 overflows late in this fall.
-The full 2000 steps run on the GPU in chip_smoke.py."""
+The full 2000 steps run in test_torch_parity_3k_2000.py and on the GPU in
+chip_smoke.py."""
 
 import pathlib
 
