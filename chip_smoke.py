@@ -36,6 +36,15 @@ Phases, each printing its own line with its seconds:
    against their plain versions; ms/step (CUDA events, median of 5 runs)
    beside the single engine's, and host syncs a step by the profiler; the
    3k C golden through 4 slabs to step 200 at the JAX DD gate;
+   dd_sticky: the same pool as 1 and 4 slabs in sticky groups of 4 for 16
+   ticks, against the same domain at r1 and against the single engine at
+   r4, exactly d density and d forces launches a tick, stale 0; one slab's
+   carried tick through both kernels against their plain versions; ms/tick
+   at r4 and r64, and a carried tick's host syncs, launches and device ms;
+   dd_render: the 4-slab state's per-slab frames at 64x128 and 256x128,
+   exactly 4 field launches a frame, the frame against
+   ``WindowRenderer.render`` on the gathered state, slab 1's field kernel
+   against its plain version, ms, launches and syncs a frame;
 6. the 3k-particle C golden drop, all 2000 steps through the kernels;
 7. the 1M pool: 64 ticks at resort_every=64, after one warm-up group;
 8. render: render_from_frame ms per frame at 64x128 and 256x128 on the
@@ -53,6 +62,9 @@ Phases, each printing its own line with its seconds:
    where the startup jets overflow the cap: at least one recovery, one
    field launch per dispatch run (replays included), one frame written per
    dispatch less the one each revert drops, overflow and stale 0 at the end;
+   runner_dd: ``cli run --backend window-dd --slabs 4`` on the dam at the
+   CLI defaults with a file display: 4 field launches a dispatch run, one
+   frame a dispatch less one a revert, overflow and stale 0 at the end;
 12. probes: the two probe scripts as a user runs them (``python -m
    pi_sph_fluid_tpu_torch.tools.unaligned_probe`` / ``.span_dma_probe``,
    their ``main()`` with the launch counters set to 0 just before and read
@@ -101,6 +113,7 @@ from pi_sph_fluid_tpu_torch.ops.window import _build  # noqa: E402
 from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk  # noqa: E402
 from pi_sph_fluid_tpu_torch.models import simulation  # noqa: E402
 from pi_sph_fluid_tpu_torch.parallel import LocalComm, WindowDomain  # noqa: E402
+from pi_sph_fluid_tpu_torch.parallel import domain_window  # noqa: E402
 from pi_sph_fluid_tpu_torch.render import metaballs_window as mw  # noqa: E402
 from pi_sph_fluid_tpu_torch.tools import launch_probe  # noqa: E402
 from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp  # noqa: E402
@@ -133,6 +146,14 @@ DD_GOLDEN_STEPS = 200   # test_parity_3k.py:149-191
 DD_GATES = dict(xy=1e-6, u=1e-5, rho_rtol=1e-5, rho_atol=1e-2)
 # the DD against the 3k C golden at step 200 (test_parity_3k.py:185-191)
 DD_GOLDEN_GATES = dict(xy=5e-5, uv=3e-3, rho_rel=1e-3)
+# sticky groups: the 100k pool at resort_every=4 for 16 ticks, against the
+# same domain at r1 (test_parallel_window.py:94-97) and against the single
+# engine in the same sticky mode (:126-128)
+DD_STICKY_SLABS, DD_STICKY_TICKS, DD_STICKY_R = (1, 4), 16, 4
+DD_STICKY_GATES = dict(xy=1e-6, u=1e-5, single_xy=1e-5, single_u=1e-4)
+DD_CARRIED = (2, 10)    # group lengths whose profiles differ by 8 carried ticks
+DD_RENDER_SLABS, DD_RENDER_FRAMES = 4, 10
+RUNNER_DD_SLABS, RUNNER_DD_DISPATCHES = 4, 12   # cli run --backend window-dd, the dam
 # wrapper (with its launch counter), the TPU kernel it replaces and its source
 WINDOW_SRC = "pi_sph_fluid_tpu_torch/csrc/window_kernels.cu"
 PROBE_SRC = "pi_sph_fluid_tpu_torch/csrc/probe_kernels.cu"
@@ -644,6 +665,204 @@ def run_dd(results: dict) -> dict:
     return out
 
 
+def _counted(fn, ticks: int, label: str) -> dict:
+    """The profiler's host syncs, kernel launches and device-busy ms of one
+    call of ``fn``, divided by ``ticks``."""
+    b = device_breakdown(fn, DEV)
+    return {f"{label}_syncs": b["syncs"] / ticks,
+            f"{label}_launches": sum(r[2] for r in b["rows"]) / ticks,
+            f"{label}_device_busy_ms": b["busy_s"] * 1e3 / ticks}
+
+
+def run_dd_sticky(results: dict) -> dict:
+    """Sticky groups on the card: the 100k pool as 1 and 4 slabs at
+    resort_every=4 for DD_STICKY_TICKS ticks from ``init``, with the counters
+    set to 0 just before and read just after: exactly d density and d forces
+    launches a tick; against the same domain at r1 and against the single
+    engine (primed, accelerations zeroed) at r4 (DD_STICKY_GATES); n_valid
+    whole on every sampled tick, every overflow column 0, stale 0.  Then ms
+    a tick at r4 and r64 (CUDA events, median of 5), the host syncs,
+    launches and device-busy ms of a carried tick (the profiler over a
+    10-tick group less a 2-tick one, over 8), and one slab of the 4-slab
+    domain's carried tick through both kernels against their plain
+    versions (hold_physics on the packed state the kernels were given).
+    Every measurement is printed before any gate is asserted."""
+    cfg = T.SPHConfig(r=math.sqrt(6.35 / N_POOL))
+    fluid, braw = T.build_pool_scene(cfg, DEV)
+    b, bg = T.prepare_boundary(braw, cfg)
+    eng = T.WindowEngine(cfg, b, bg, fluid.n, DEV)
+    sim0 = eng.prime(fluid, G)
+    sim0 = sim0._replace(au=torch.zeros_like(sim0.au), av=torch.zeros_like(sim0.av))
+    n_t, k = DD_STICKY_TICKS, DD_STICKY_R
+    single = eng.make_multi_step(resort_every=k)
+    want = eng.unpad(single(sim0, _gravity(n_t))[0])
+    out, failed, launches = {}, [], {}
+    out["single_r4_ms_per_tick"] = _median_ms(lambda: single(sim0, _gravity(n_t)), n_t)[0]
+    single64 = eng.make_multi_step(resort_every=64)
+    out["single_r64_ms_per_tick"] = _median_ms(lambda: single64(sim0, _gravity(64)), 64)[0]
+    for d in DD_STICKY_SLABS:
+        dd = WindowDomain(cfg, b, bg, fluid.n, LocalComm(d), DEV)
+        state0 = dd.init(fluid)
+        exact = dd.gather(dd.make_multi_step()(state0, _gravity(n_t))[0])
+        multi = dd.make_multi_step(resort_every=k)
+        _reset_counts()
+        state, st = multi(state0, _gravity(n_t))
+        counts = _counts()
+        launches[d] = counts
+        got = dd.gather(state)
+        err, err_single = _dd_errors(got, exact), _dd_errors(got, want)
+        sampled = torch.tensor([i % k in (0, k - 1) for i in range(n_t)], device=DEV)
+        print(f"  dd sticky {d} slabs, r{k}, {n_t} ticks: against r1 {json.dumps(err)}; "
+              f"against the single engine at r{k} {json.dumps(err_single)}; "
+              f"launches {json.dumps(counts)}", flush=True)
+        checks = {
+            "x, y against r1": max(err["x"], err["y"]) <= DD_STICKY_GATES["xy"],
+            "u against r1": err["u"] <= DD_STICKY_GATES["u"],
+            "rho against r1": err["rho_excess"] <= DD_GATES["rho_atol"],
+            "x, y against the single engine":
+                max(err_single["x"], err_single["y"]) <= DD_STICKY_GATES["single_xy"],
+            "u against the single engine": err_single["u"] <= DD_STICKY_GATES["single_u"],
+            "n_valid": bool((st["n_valid"][sampled] == fluid.n).all()),
+            "overflow": int(st["overflow"].max()) == 0,
+            "overflow_by": int(st["overflow_by"].max()) == 0,
+            "stale": int(st["stale"].sum()) == 0,
+            "launches": counts["density_window"] == counts["forces_window"] == d * n_t
+            and all(counts[name] == 0 for name in KERNELS if name not in SIM_KERNELS[:2]),
+            "finite": bool(torch.isfinite(state.fluid.x).all()),
+        }
+        failed += [f"{d} slabs: {name}" for name, ok in checks.items() if not ok]
+        out[f"dd{d}_r1_err"], out[f"dd{d}_single_r4_err"] = json.dumps(err), json.dumps(err_single)
+        out[f"dd{d}_r4_ms_per_tick"] = _median_ms(lambda: multi(state0, _gravity(n_t)), n_t)[0]
+        multi64 = dd.make_multi_step(resort_every=64)
+        out[f"dd{d}_r64_ms_per_tick"] = _median_ms(lambda: multi64(state0, _gravity(64)), 64)[0]
+        prof = {}
+        for kk in DD_CARRIED:
+            group = dd.make_multi_step(resort_every=kk)
+            group(state0, _gravity(kk))
+            prof[kk] = _counted(lambda: group(state0, _gravity(kk)), 1, "g")
+        extra = DD_CARRIED[1] - DD_CARRIED[0]
+        for key in prof[DD_CARRIED[0]]:
+            out[f"dd{d}_carried_{key[2:]}_per_tick"] = \
+                (prof[DD_CARRIED[1]][key] - prof[DD_CARRIED[0]][key]) / extra
+        if d == 4:
+            # slab 1's carried tick: the second tick's second call of _pair_acc
+            calls, pair_acc = [], engine_v3.WindowEngine._pair_acc
+
+            def spy(self, pk, ctx, *args):
+                calls.append((self, pk, ctx))
+                return pair_acc(self, pk, ctx, *args)
+
+            with mock.patch.object(engine_v3.WindowEngine, "_pair_acc", spy):
+                dd.make_multi_step(resort_every=2)(state, _gravity(2))
+            h = hold_physics(*calls[d + 1])
+            out["slab1_carried_kernels_vs_plain"] = json.dumps(
+                {name: h[name] for name in ("rel_rho", "d_p", "d_acc", "d_uv")})
+            out["last_state"] = (dd, state, eng)
+        del dd, state0
+    for name in SIM_KERNELS[:2]:
+        results[name]["dd_sticky_launches"] = {d: c[name] for d, c in launches.items()}
+    print("  " + json.dumps({key: v for key, v in out.items() if key != "last_state"}),
+          flush=True)
+    assert not failed, f"dd_sticky: {failed}"
+    return out
+
+
+def run_dd_render(results: dict, dd, state, eng) -> dict:
+    """The per-slab renderer on the card: the 100k pool's 4-slab state after
+    the sticky run (``eng``: the single engine of the same pool), at 64x128
+    and 256x128.  DD_RENDER_FRAMES frames with the
+    counters set to 0 just before and read just after: exactly 4 field
+    launches a frame and no other kernel; the framebuffer against
+    ``WindowRenderer.render`` on the gathered state (at least 99.9% of the
+    pixels equal); slab 1's field kernel against its plain version on the
+    inputs it was given (max |d| over max |field| at most 1e-5); ms a frame
+    (CUDA events) and the launches and syncs of a frame (the profiler)."""
+    d, n = dd.n_slabs, DD_RENDER_FRAMES
+    packed = eng._initial_packed(dd.gather(state))
+    zero = torch.zeros_like(packed[:, 0])
+    sim = T.PackedSim(packed=packed, ids=packed[:, 7].int(), au=zero, av=zero)
+    out, failed = {}, []
+    for rows, cols in SHAPES:
+        tag = f"{rows}x{cols}"
+        render = dd.make_render(rows, cols)
+        fb, ov = render(state)
+        _reset_counts()
+        for _ in range(n):
+            render(state)
+        _sync()
+        counts = _counts()
+        results["field_window"][f"dd_render_{tag}_launches"] = counts["field_window"]
+        ref, ov_ref = mw.WindowRenderer(eng, rows, cols).render(sim)
+        same = T.unpack_framebuffer(fb.cpu().numpy(), rows, cols) == \
+            T.unpack_framebuffer(ref.cpu().numpy(), rows, cols)
+        calls = []
+
+        def spy(*args):
+            calls.append(args)
+            return mw.field_window(*args)
+
+        with mock.patch.object(domain_window, "field_window", spy):
+            render(state)
+        args = calls[1]
+        fk, fp = mw.field_window(*args), mw.field_window_plain(*args)
+        _sync()
+        rel = float((fk - fp).abs().max()) / float(fp.abs().max())
+        out[f"{tag}_equal_pixels"] = int(same.sum())
+        out[f"{tag}_pixels"] = same.size
+        out[f"{tag}_slab1_field_rel_err"] = rel
+        out[f"{tag}_ms_per_frame"] = event_ms(lambda: render(state), n)
+        out.update(_counted(lambda: [render(state) for _ in range(n)], n, f"{tag}_frame"))
+        out[f"{tag}_overflow"] = int(ov)
+        print(f"  dd render {d} slabs {tag}: {int(same.sum())} of {same.size} pixels equal "
+              f"to WindowRenderer.render on the gathered state; slab 1 field kernel "
+              f"max |d| / max |field| {rel:.3e}; launches in {n} frames "
+              f"{json.dumps(counts)}; overflow {int(ov)} (single renderer "
+              f"{int(ov_ref)})", flush=True)
+        checks = {
+            "field launches": counts["field_window"] == d * n
+            and all(counts[name] == 0 for name in KERNELS if name != "field_window"),
+            "pixels": same.mean() >= 0.999,
+            "field kernel": rel <= 1e-5,
+            "overflow": int(ov) == 0,
+        }
+        failed += [f"{tag}: {name}" for name, ok in checks.items() if not ok]
+    assert not failed, f"dd_render: {failed}"
+    return out
+
+
+def run_runner_dd() -> dict:
+    """``cli run --backend window-dd --slabs 4`` on the card, as a user
+    starts it: the dam at the CLI defaults (resort_every 8 and its ladder,
+    cap 384, recovery on) with a file display, RUNNER_DD_DISPATCHES
+    dispatches, the counters set to 0 just before and read just after:
+    frames written = dispatches run less one a revert, field launches = 4 x
+    the dispatches run (replays included), density and forces launched,
+    overflow and stale 0 at the end."""
+    cfg = T.SPHConfig()
+    k = -(-int(round(1.0 / (60.0 * cfg.dt))) // 8) * 8
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "frames.bin"
+        _reset_counts()
+        res = cli.main(["run", "--backend", "window-dd", "--slabs", str(RUNNER_DD_SLABS),
+                        "--device", "cuda", "--scene", "dam", "--display", f"file:{path}",
+                        "--seconds", repr(RUNNER_DD_DISPATCHES * k * cfg.dt)])
+        counts = _counts()
+        frames = np.fromfile(path, np.uint8).reshape(-1, 1024)
+    info = dict(k=k, dispatches=RUNNER_DD_DISPATCHES, run=res.dispatches,
+                recoveries=res.recoveries, frames=frames.shape[0], launches=counts,
+                overflow=res.reporter.total_overflow, stale=res.reporter.total_stale,
+                wall_s=res.wall_s, ps_per_s=res.particle_steps_per_s,
+                worst_speed=res.reporter.worst_speed)
+    print("  " + json.dumps(info), flush=True)
+    assert res.steps == RUNNER_DD_DISPATCHES * k, (res.steps, k)
+    assert frames.shape[0] == res.dispatches - res.recoveries, info
+    assert counts["field_window"] == RUNNER_DD_SLABS * res.dispatches, info
+    assert counts["density_window"] > 0 and counts["forces_window"] > 0, info
+    assert res.reporter.total_overflow == 0 and res.reporter.total_stale == 0, info
+    assert all(T.unpack_framebuffer(fb).any() for fb in frames), "an unlit frame"
+    return info
+
+
 def run_golden() -> dict:
     """The 3k C golden drop through the kernels at the gates of
     tests/test_parity_3k.py:129 (cap=384, as the JAX engine's gate)."""
@@ -713,6 +932,15 @@ def run() -> dict:
     _phase("dd", t0, **run_dd(results))
 
     t0 = time.perf_counter()
+    sticky = run_dd_sticky(results)
+    last = sticky.pop("last_state")
+    _phase("dd_sticky", t0, **sticky)
+
+    t0 = time.perf_counter()
+    _phase("dd_render", t0, **run_dd_render(results, *last))
+    del last
+
+    t0 = time.perf_counter()
     worst = run_golden()
     _phase("golden_3k", t0, steps=GOLDEN_STEPS, worst=json.dumps(worst))
 
@@ -747,6 +975,12 @@ def run() -> dict:
 
     t0 = time.perf_counter()
     _phase("runner_recovery", t0, **run_recovery())
+
+    t0 = time.perf_counter()
+    info = run_runner_dd()
+    for name in SIM_KERNELS:
+        results[name]["runner_dd_launches"] = info["launches"][name]
+    _phase("runner_dd", t0, **info)
 
     t0 = time.perf_counter()
     _phase("probes", t0, **run_probes(results))

@@ -4,12 +4,14 @@
 `pi_sph_fluid` targets, `Makefile:18-27`, with --realtime and the sensor
 and display chosen at run time); ``bench`` free-runs without pacing.  Both
 take ``--backend window`` (the default, the JAX CLI's "pallas": the window
-kernels) or ``--backend reference`` (the jnp oracle; the JAX CLI's
-"pallas-dd" is not ported yet) on ``--device`` (default ``cuda``; there is
-no fallback to the CPU when no GPU is found).
+kernels), ``--backend window-dd --slabs N`` (slab domain decomposition, all
+N slabs on the one device; the JAX CLI's "pallas-dd") or ``--backend
+reference`` (the jnp oracle) on ``--device`` (default ``cuda``; there is no
+fallback to the CPU when no GPU is found).
 
     python -m pi_sph_fluid_tpu_torch.cli run --scene drop --seconds 3 --display terminal
     python -m pi_sph_fluid_tpu_torch.cli run --device cpu --scene drop --display file:/tmp/f.bin
+    python -m pi_sph_fluid_tpu_torch.cli run --backend window-dd --slabs 4 --scene dam
     python -m pi_sph_fluid_tpu_torch.cli bench --n 1000000 --steps 64 --render
     python -m pi_sph_fluid_tpu_torch.cli run --backend reference --scene drop --display file:/tmp/f.bin
 """
@@ -102,6 +104,13 @@ def _make_sink(args, shape: tuple[int, int]):
     raise SystemExit(f"unknown display {args.display!r}")
 
 
+def _engine_opts(args) -> dict:
+    opts = dict(cap=args.cap)
+    if args.backend == "window-dd" and args.slabs:
+        opts["slabs"] = args.slabs
+    return opts
+
+
 def cmd_run(args):
     from .io.host_loop import SimRunner
 
@@ -118,7 +127,7 @@ def cmd_run(args):
     print(f"n_boundary = {braw.n}")
     render_shape = _parse_render_shape(args.render_shape)
     runner = SimRunner(cfg, fluid, braw, backend=args.backend,
-                       engine_opts=dict(cap=args.cap),
+                       engine_opts=_engine_opts(args),
                        render=args.display != "none",
                        render_shape=render_shape,
                        resort_every=args.resort_every,
@@ -161,6 +170,8 @@ def cmd_run(args):
             # leapfrog carry included) for a bitwise resume
             save_state(args.save_state, fluid=runner.engine.unpad(sim),
                        packed=sim.packed, ids=sim.ids, au=sim.au, av=sim.av)
+        elif runner.domain is not None:
+            save_state(args.save_state, fluid=runner.domain.gather(sim))
         else:
             save_state(args.save_state, fluid=sim.fluid, ids=sim.ids,
                        au=sim.au, av=sim.av)
@@ -168,6 +179,12 @@ def cmd_run(args):
     extra = (f", {result.recoveries} capacity recover"
              f"{'y' if result.recoveries == 1 else 'ies'}"
              if result.recoveries else "")
+    by = result.reporter.total_overflow_by
+    if by is not None and int(by.sum()) > 0:
+        from .models.simulation import OVERFLOW_CATEGORIES
+
+        named = {c: int(n) for c, n in zip(OVERFLOW_CATEGORIES, by) if n > 0}
+        extra += f", unrecovered overflow by capacity: {named}"
     print(f"\n{result.steps} steps in {result.wall_s:.2f}s "
           f"({result.particle_steps_per_s / 1e6:.2f}M particle-steps/s)"
           f"{extra}", file=sys.stderr)
@@ -185,7 +202,7 @@ def cmd_bench(args):
     # auto_cap off: a bench measures the configured cap; overflow shows in
     # the JSON instead
     runner = SimRunner(cfg, fluid, braw, backend=args.backend,
-                       engine_opts=dict(cap=args.cap),
+                       engine_opts=_engine_opts(args),
                        render=args.render,
                        resort_every=args.resort_every, auto_cap=False,
                        device=args.device)
@@ -218,10 +235,15 @@ def cmd_bench(args):
 def _add_target(p):
     p.add_argument("--device", default="cuda",
                    help="torch device the run lives on (cuda, cuda:N, cpu)")
-    p.add_argument("--backend", default="window", choices=["window", "reference"],
-                   help="window: the window kernels (production); reference: "
-                        "the jnp oracle (dense candidates, exact every tick, "
-                        "no cap recovery)")
+    p.add_argument("--backend", default="window",
+                   choices=["window", "window-dd", "reference"],
+                   help="window: the window kernels (production); window-dd: "
+                        "the window kernels under slab domain decomposition, "
+                        "every slab on the one device; reference: the jnp "
+                        "oracle (dense candidates, exact every tick, no cap "
+                        "recovery)")
+    p.add_argument("--slabs", type=int, default=None,
+                   help="window-dd: the number of slabs (default 1)")
 
 
 def main(argv=None):

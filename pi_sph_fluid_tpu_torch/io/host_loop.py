@@ -1,6 +1,6 @@
 """The host run loop: K device steps per dispatch, I/O at the edges (port of
-`pi_sph_fluid_tpu/io/host_loop.py:31-670`, the window and reference
-backends).
+`pi_sph_fluid_tpu/io/host_loop.py:31-670`: the window, slab-decomposition
+and reference backends).
 
 This replaces the reference's `main` loop (`pi_sph_fluid.c:610-703`): the
 device advances K ticks per dispatch, gravity is sampled per batch (a (K, 2)
@@ -13,7 +13,10 @@ Every loss channel stays counted: the render's window overflow folds into
 (a 1.5x ladder, revert to the last clean report, replay the logged gravity
 traces); a stale-drift trip halves ``resort_every`` and replays; clean
 report intervals double it up to a ceiling pinned below any period that
-tripped.
+tripped.  Under slab decomposition each capacity the loss names
+(``StepStats.overflow_by``) grows on its own ladder, and a revert goes
+through the domain's export and init, since the state's shapes change with
+the capacities.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ import torch
 from ..config import SPHConfig
 from ..models.boundary import prepare_boundary
 from ..models.engine_v3 import WindowEngine
-from ..models.simulation import make_multi_step, prime
+from ..models.simulation import (OVERFLOW_CATEGORIES, StepStats, make_multi_step,
+                                 prime)
+from ..parallel import LocalComm, WindowDomain
 from ..render.metaballs import make_renderer
 from ..render.metaballs_window import WindowRenderer
 from ..utils.stats import StatsReporter
@@ -47,12 +52,16 @@ def _saturating_sum(a: torch.Tensor) -> torch.Tensor:
 
 
 def _reduce(st):
-    """A dispatch's (K,) stats reduced on the device to scalars
-    (`host_loop.py:306-329`)."""
+    """A dispatch's (K,) stats reduced on the device to scalars, and
+    overflow_by to (4,) (`host_loop.py:306-329`)."""
+    by = st.overflow_by
+    if by is not None:
+        by = torch.clamp_max(torch.sum(by.to(torch.float32), 0), 1e9).to(torch.int32)
     return type(st)(
         max_rho_error_pct=torch.max(st.max_rho_error_pct),
         max_speed=torch.max(st.max_speed),
         neighbor_overflow=_saturating_sum(st.neighbor_overflow),
+        overflow_by=by,
         stale=None if st.stale is None else _saturating_sum(st.stale))
 
 
@@ -75,10 +84,11 @@ class SimRunner:
     """Owns the engine and renderer for one scene on one device.
 
     backend: "window" (the window kernels on one device; the JAX package's
-    "pallas") or "reference" (the jnp oracle, models/simulation.py: dense
-    candidate windows, the oracle renderer, no resort ladder and no cap
-    recovery, as in the JAX runner).  Slab domain decomposition
-    ("window-dd") is not ported yet.
+    "pallas"), "window-dd" (slab domain decomposition, parallel/
+    domain_window.py, all ``engine_opts["slabs"]`` slabs on the one device,
+    default 1; the JAX package's "pallas-dd") or "reference" (the jnp
+    oracle, models/simulation.py: dense candidate windows, the oracle
+    renderer, no resort ladder and no cap recovery, as in the JAX runner).
     """
 
     def __init__(
@@ -97,15 +107,11 @@ class SimRunner:
         raise_after: int = 2,
         device="cuda",
     ):
-        if backend in ("window-dd", "pallas-dd"):
-            raise NotImplementedError(
-                "slab domain decomposition is not ported yet: ROADMAP Queue 1 "
-                "item 10")
-        if backend not in ("window", "reference"):
+        if backend not in ("window", "window-dd", "reference"):
             raise ValueError(f"unknown backend {backend!r}")
         if resort_every < 1:
             raise ValueError(f"resort_every must be >= 1, got {resort_every}")
-        window = backend == "window"
+        window = backend != "reference"
         self.cfg = cfg
         self.backend = backend
         self.device = torch.device(device)
@@ -126,7 +132,10 @@ class SimRunner:
         self._raise_after = max(1, int(raise_after))
         self._resort_ceiling = max_resort or 0
         self._engine_opts = dict(engine_opts or {})
-        if window:
+        self.domain = None
+        if backend == "window-dd":
+            self._build_dd()
+        elif window:
             self._build()
         else:
             self._build_reference()
@@ -153,6 +162,83 @@ class SimRunner:
         self._renderer = (WindowRenderer(self.engine, *self._render_shape)
                           .render_from_frame if self._render else None)
 
+    def _dd_growth(self, cats: set) -> dict:
+        """The capacity growth for the starved categories (names of
+        OVERFLOW_CATEGORIES), each on its own 1.5x ladder with a ceiling
+        (`host_loop.py:175-207`): window at max_cap, halo and migration at
+        the slab cap (their rows are a slab's), slab at the whole fluid.  A
+        category at its ceiling is left out, so repeated recovery ends: an
+        empty proposal means the run goes on with counted losses."""
+        d = self.domain
+        grow = {}
+        if "window" in cats:
+            nc = self._next_cap(d.spec.cap)
+            if nc > d.spec.cap:
+                grow["cap"] = nc
+        edge_bound = -(-d.slab_cap // 64) * 64
+        if "halo" in cats:
+            nh = min(_ladder_up(d.halo_cap, 64), edge_bound)
+            if nh > d.halo_cap:
+                grow["halo_cap"] = nh
+        if "mig" in cats:
+            nm = min(_ladder_up(d.mig_cap, 64), edge_bound)
+            if nm > d.mig_cap:
+                grow["mig_cap"] = nm
+        if "slab" in cats:
+            ns = min(_ladder_up(d.slab_cap, 128),
+                     -(-(self.n_fluid + 64) // 128) * 128)
+            if ns > d.slab_cap:
+                grow["slab_cap"] = ns
+        return grow
+
+    def _build_dd(self, grow: dict | None = None):
+        """(Re)build the slab decomposition (`host_loop.py:209-248`): a
+        ``WindowDomain`` over ``LocalComm(slabs)`` on the runner's device,
+        its sticky multi-step, a damped exact settle multi-step and the
+        per-slab renderer.  ``grow`` (from _dd_growth) overrides capacities
+        and is kept for later rebuilds."""
+        if grow:
+            self._engine_opts.update(grow)
+        opts = dict(self._engine_opts)
+        slabs = opts.pop("slabs", None) or 1
+        self.engine = None
+        self.domain = WindowDomain(self.cfg, self.boundary, self._bgrid,
+                                   self.n_fluid, LocalComm(slabs), self.device,
+                                   **opts)
+        self._multi = self._wrap_dd(self.domain.make_multi_step(
+            resort_every=self._resort))
+        self._settle_multi = self._wrap_dd(self.domain.make_multi_step(damping=0.995))
+        self._renderer = None
+        if self._render:
+            render = self.domain.make_render(*self._render_shape)
+            self._renderer = lambda sim, frame: render(sim)
+
+    def _wrap_dd(self, dmulti):
+        """A WindowDomain multi-step with its stats dict as StepStats
+        (`host_loop.py:250-269`): a particle lost (n_valid short of the
+        fluid at the last tick) screams x1e6 in every tick's overflow, as in
+        JAX, summed without wrapping."""
+        n_fluid = self.n_fluid
+
+        def multi(state, g_trace):
+            state, st = dmulti(state, g_trace)
+            lost = torch.clamp_min(n_fluid - st["n_valid"][-1].to(torch.int64), 0)
+            ov = st["overflow"].to(torch.int64) + lost * 1_000_000
+            return state, StepStats(
+                max_rho_error_pct=st["max_rho_error_pct"],
+                max_speed=st["max_speed"],
+                neighbor_overflow=torch.clamp_max(ov, (1 << 31) - 1).to(torch.int32),
+                overflow_by=st["overflow_by"], stale=st.get("stale"))
+
+        return multi
+
+    def _rebuild(self):
+        """Rebuild the backend's pipeline after a change of resort_every."""
+        if self.domain is not None:
+            self._build_dd()
+        else:
+            self._build()
+
     def _build_reference(self):
         """The jnp-oracle pipeline (`host_loop.py:133-138,298-300`): prime,
         multi-step and damped settle of models/simulation.py, and the oracle
@@ -169,14 +255,16 @@ class SimRunner:
             self._renderer = lambda sim, frame: (render(sim.fluid), zero)
 
     def _prime(self, g):
+        if self.domain is not None:
+            return self.domain.init(self._fluid_init)
         if self.engine is None:
             return prime(self._fluid_init, self.boundary, self._bgrid, g, self.cfg)
         return self.engine.prime(self._fluid_init, g)
 
     def _dispatch(self, sim, g_trace):
         """K ticks, then (with a renderer) one frame from the engine's last
-        relayout (the oracle renders the state itself); stats reduced on the
-        device, render overflow folded in."""
+        relayout (the oracle and the slab decomposition render the state
+        itself); stats reduced on the device, render overflow folded in."""
         if self._renderer is None:
             sim, st = self._multi(sim, g_trace)
             return sim, _reduce(st), None
@@ -240,13 +328,31 @@ class SimRunner:
         use_ac = self.auto_cap
         recoveries = 0
 
+        def growing(grow):
+            return ", ".join(f"{key} -> {val}" for key, val in sorted(grow.items()))
+
         def start_recovered():
-            """start() with settle-overflow recovery: grow cap on its ladder
-            and redo prime + settle until the pre-roll is clean or the
-            ceiling is hit.  Used at run start and on a revert-to-start."""
+            """start() with settle-overflow recovery: grow the capacities on
+            their ladders and redo prime + settle until the pre-roll is
+            clean or the ceilings are hit.  Used at run start and on a
+            revert-to-start."""
             nonlocal use_ac, recoveries
             sim, settle_ov = start()
             while use_ac and settle_ov > 0:
+                if self.domain is not None:
+                    # the settle drains only the total: grow every capacity
+                    grow = self._dd_growth(set(OVERFLOW_CATEGORIES))
+                    if not grow:
+                        use_ac = False
+                        say("OVERFLOW during settle with every capacity at its "
+                            "ceiling: continuing with losses")
+                        break
+                    say(f"OVERFLOW during settle: growing {growing(grow)}, "
+                        f"restarting settle")
+                    self._build_dd(grow)
+                    recoveries += 1
+                    sim, settle_ov = start()
+                    continue
                 old_cap = self.engine.spec.cap
                 new_cap = self._next_cap(old_cap)
                 if new_cap <= old_cap:
@@ -317,6 +423,32 @@ class SimRunner:
             if use_ac and (line is not None or i == n_dispatch):
                 # the checks ride the report cadence (plus end of run), where
                 # the reporter drains anyway: no extra host syncs
+                if reporter.total_overflow > 0 and self.domain is not None:
+                    # grow exactly the capacities the attribution names; a
+                    # scream with no capacity loss (non-finite rows, lost
+                    # particles) names none, so grow them all
+                    by = reporter.total_overflow_by
+                    cats = (set(OVERFLOW_CATEGORIES) if by is None or int(by.sum()) == 0
+                            else {c for c, n in zip(OVERFLOW_CATEGORIES, by) if n > 0})
+                    grow = self._dd_growth(cats)
+                    if not grow:
+                        use_ac = False
+                        say(f"OVERFLOW in {sorted(cats)} with every starved "
+                            f"capacity at its ceiling: continuing with losses")
+                        continue
+                    say(f"OVERFLOW in {sorted(cats)}: growing {growing(grow)}, "
+                        f"reverting to t={ck_t:.2f}s and replaying")
+                    if ck_is_start:
+                        self._build_dd(grow)
+                        ck_sim = start_recovered()
+                    else:
+                        # the slab arrays change shape with the capacities:
+                        # the checkpoint goes through the lossless export
+                        ck_export = self.domain.export(ck_sim)
+                        self._build_dd(grow)
+                        ck_sim = self.domain.init(*ck_export)
+                    revert()
+                    continue
                 if reporter.total_overflow > 0:
                     old_cap = self.engine.spec.cap
                     new_cap = self._next_cap(old_cap)
@@ -345,7 +477,7 @@ class SimRunner:
                     self._resort = new_resort
                     # a period that tripped is never re-entered by the ladder
                     self._resort_ceiling = min(self._resort_ceiling, new_resort)
-                    self._build()
+                    self._rebuild()
                     if ck_is_start:
                         ck_sim = start_recovered()
                     revert()
@@ -370,7 +502,7 @@ class SimRunner:
                                 f"resort_every {self._resort} -> {new_r}")
                             self._resort = new_r
                             clean_streak = 0
-                            self._build()
+                            self._rebuild()
             if realtime:
                 # pacing to the sim-time deadline (the reference's REALTIME
                 # spin-wait, `pi_sph_fluid.c:694-701`, as sleep + spin)

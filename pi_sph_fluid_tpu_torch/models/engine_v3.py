@@ -101,6 +101,13 @@ class WindowEngine:
     def _relayout(self, packed: torch.Tensor):
         """Sort into the qb-quantised row layout and build the frame
         (`engine_v3.py:130-171`).  Returns (packed_new, ctx, overflow)."""
+        return self._relayout_order(packed)[:3]
+
+    def _relayout_order(self, packed: torch.Tensor):
+        """``_relayout`` that also returns the sort's ``order``: layout slot
+        j holds input row ``order[ctx.layout_src[j]]`` where
+        ``layout_src[j] < n_layout`` (else the inert row).  The slab
+        decomposition's sticky group maps its halo rows to slots with it."""
         cfg, spec = self.cfg, self.spec
         x, y, m = packed[:, 0], packed[:, 1], packed[:, 4]
         keys = torch.where(m > 0, cell_ids(x, y, cfg),
@@ -120,17 +127,22 @@ class WindowEngine:
         ctx = TripleCtx(layout_src=layout_src, start_grid=f_grid,
                         w_start=w_start, w_len=w_len, flen=flen, T=T,
                         overflow=overflow, spans=spans)
-        return packed_new, ctx, overflow
+        return packed_new, ctx, overflow, order
+
+    def _pair_acc(self, packed, ctx: TripleCtx, g,
+                  half_dt: float = 0.0, damp: float = 1.0):
+        """density -> EOS -> forces -> trailing half-kick over one frame
+        (`engine_v3.py:221-261`).  Returns (pk_next, acc (n_layout, 2)); the
+        defaults leave u, v unchanged, which is the priming pass."""
+        cfg, spec = self.cfg, self.spec
+        geo8, rp = density_window(packed, self._b_geo_d, ctx.spans, cfg, spec)
+        return forces_window(packed, geo8, rp, self._b_geo_f, ctx.spans,
+                             g, cfg, spec, half_dt, damp)
 
     def _pair_passes(self, packed, ctx: TripleCtx, g,
                      half_dt: float = 0.0, damp: float = 1.0):
-        """density -> EOS -> forces -> trailing half-kick over one frame
-        (`engine_v3.py:221-261`).  Returns (pk_next, au, av); the defaults
-        leave u, v unchanged, which is the priming pass."""
-        cfg, spec = self.cfg, self.spec
-        geo8, rp = density_window(packed, self._b_geo_d, ctx.spans, cfg, spec)
-        pk_next, acc = forces_window(packed, geo8, rp, self._b_geo_f, ctx.spans,
-                                     g, cfg, spec, half_dt, damp)
+        """``_pair_acc`` with the accelerations as (au, av)."""
+        pk_next, acc = self._pair_acc(packed, ctx, g, half_dt, damp)
         return pk_next, acc[:, 0], acc[:, 1]
 
     # ------------------------------------------------------------------

@@ -31,8 +31,8 @@ from ..ops.grid import GridContext, build_grid
 from ..ops.neighbors import gather_candidates, span_overflow
 from ..state import BoundaryState, FluidState
 
-__all__ = ["SimState", "StepStats", "prime", "make_step", "make_multi_step", "stats",
-           "host_gravity"]
+__all__ = ["SimState", "StepStats", "OVERFLOW_CATEGORIES", "prime", "make_step",
+           "make_multi_step", "stats", "host_gravity"]
 
 
 class SimState(NamedTuple):
@@ -42,17 +42,27 @@ class SimState(NamedTuple):
     av: torch.Tensor
 
 
+# The order of StepStats.overflow_by (`simulation.py:45-48`): the slab
+# decomposition stacks its counts so, the runner's targeted recovery and the
+# CLI's summary name them by it.
+OVERFLOW_CATEGORIES = ("window", "halo", "mig", "slab")
+
+
 class StepStats(NamedTuple):
     """Per-tick invariants (`pi_sph_fluid.c:656-675`).
 
     neighbor_overflow counts window lanes lost to the cap, plus x1e6 for
     every non-finite real row or L-budget overrun: it must read 0.
+    overflow_by (the slab decomposition only) splits the capacity losses by
+    OVERFLOW_CATEGORIES, so that recovery grows the starved buffer alone;
+    neighbor_overflow stays the total and carries the screams.
     stale (sticky modes only) counts real particles that drifted more than
     0.3*H since their group's layout was built."""
 
     max_rho_error_pct: torch.Tensor
     max_speed: torch.Tensor
     neighbor_overflow: torch.Tensor
+    overflow_by: torch.Tensor | None = None
     stale: torch.Tensor | None = None
 
 

@@ -13,11 +13,13 @@ slab i at index i; every exchange between two phases goes through one
 * ``all_sum(per_slab)`` and ``all_max(per_slab)`` reduce across slabs into
   one tensor of the slabs' shape and dtype, on their device (no host read).
   An integer sum wraps as the dtype does: sum counts that can be large in
-  int64 (parallel/domain.py::saturating_sum).
+  int64 (parallel/domain.py::saturating_sum);
+* ``all_gather(per_slab)`` is the slabs' buffers concatenated in slab
+  order, on every slab (the per-slab render's composed field).
 
 ``LocalComm(d)`` holds all d slabs in one process, on one device, and does
-all three by list rotation and ``torch.stack``.  A communicator across
-processes implements the same three methods.
+all four by list rotation, ``torch.stack`` and ``torch.cat``.  A
+communicator across processes implements the same four methods.
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ class Comm:
         raise NotImplementedError
 
     def all_max(self, per_slab: list) -> torch.Tensor:
+        raise NotImplementedError
+
+    def all_gather(self, per_slab: list) -> torch.Tensor:
         raise NotImplementedError
 
 
@@ -70,3 +75,7 @@ class LocalComm(Comm):
     def all_max(self, per_slab: list) -> torch.Tensor:
         self._check(per_slab)
         return torch.stack(per_slab).amax(0)
+
+    def all_gather(self, per_slab: list) -> torch.Tensor:
+        self._check(per_slab)
+        return torch.cat(per_slab)

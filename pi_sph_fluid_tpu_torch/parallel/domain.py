@@ -71,20 +71,26 @@ def _masked_grid(x, y, valid, cfg: SPHConfig) -> GridContext:
                        cell_starts=csr_starts(keys, cfg.n_cells + 2))
 
 
-def _take_first(mask, arrays, cap: int):
-    """Stable-pack the slots where ``mask`` holds into the first ``cap``
-    lanes (`domain.py:72-106`).  Returns (packed arrays, lane validity,
-    overflow count).  A source shorter than ``cap`` pads to ``cap``
-    (`:82-92`): receive buffers are sized by capacity, never by source.
-    Arrays of one dtype are stacked and gathered as rows, one gather each."""
+def _first(mask, cap: int):
+    """The slots of the first ``cap`` lanes of a stable pack of ``mask``
+    (set slots first, in order) and each lane's validity; a source shorter
+    than ``cap`` pads to ``cap`` (`domain.py:82-92`): receive buffers are
+    sized by capacity, never by source."""
     order = torch.argsort((~mask).to(torch.uint8), stable=True)
     n = mask.shape[0]
     if cap > n:
-        idx = torch.cat([order, order.new_zeros(cap - n)])
-        lane_valid = torch.cat([mask[order], mask.new_zeros(cap - n)])
-    else:
-        idx = order[:cap]
-        lane_valid = mask[idx]
+        return (torch.cat([order, order.new_zeros(cap - n)]),
+                torch.cat([mask[order], mask.new_zeros(cap - n)]))
+    idx = order[:cap]
+    return idx, mask[idx]
+
+
+def _take_first(mask, arrays, cap: int):
+    """Stable-pack the slots where ``mask`` holds into the first ``cap``
+    lanes (`domain.py:72-106`, through ``_first``).  Returns (packed
+    arrays, lane validity, overflow count).  Arrays of one dtype are
+    stacked and gathered as rows, one gather each."""
+    idx, lane_valid = _first(mask, cap)
     packed = [None] * len(arrays)
     for dtype in {a.dtype for a in arrays}:
         cols = [i for i, a in enumerate(arrays) if a.dtype == dtype]

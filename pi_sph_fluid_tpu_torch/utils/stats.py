@@ -19,6 +19,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 __all__ = ["StatsReporter"]
@@ -26,12 +27,15 @@ __all__ = ["StatsReporter"]
 
 def _column(st) -> torch.Tensor:
     """One dispatch's stats as float64 [max rho error %, max speed,
-    overflow sum, stale sum] on their device (float64 holds the int sums
-    exactly)."""
+    overflow sum, stale sum, overflow_by sums (4)] on their device (float64
+    holds the int sums exactly; no overflow_by reads as zeros)."""
     ov = st.neighbor_overflow.sum(dtype=torch.int64)
     stale = torch.zeros_like(ov) if st.stale is None else st.stale.sum(dtype=torch.int64)
-    return torch.stack([st.max_rho_error_pct.max().double(),
-                        st.max_speed.max().double(), ov.double(), stale.double()])
+    by = (ov.new_zeros(4) if st.overflow_by is None
+          else st.overflow_by.reshape(-1, 4).sum(0, dtype=torch.int64))
+    return torch.cat([torch.stack([st.max_rho_error_pct.max().double(),
+                                   st.max_speed.max().double(), ov.double(),
+                                   stale.double()]), by.double()])
 
 
 @dataclass
@@ -46,6 +50,7 @@ class StatsReporter:
     _worst_rho: float = 0.0
     _worst_speed: float = 0.0
     _overflow: int = 0
+    _overflow_by: np.ndarray | None = None   # (4,) [window, halo, mig, slab]
     _stale: int = 0            # sticky-layout staleness-guard trips
     _window_rho: float = 0.0
     _window_speed: float = 0.0
@@ -68,6 +73,15 @@ class StatsReporter:
         return self._overflow
 
     @property
+    def total_overflow_by(self) -> np.ndarray | None:
+        """Capacity losses by OVERFLOW_CATEGORIES [window, halo, mig, slab]
+        (np.int64 (4,)), or None when no dispatch reported them (every
+        backend but the slab decomposition).  SimRunner's recovery grows
+        the starved capacities it names."""
+        self._drain()
+        return None if self._overflow_by is None else self._overflow_by.copy()
+
+    @property
     def total_stale(self) -> int:
         """Sticky-layout staleness-guard trips (particle-ticks whose drift
         since the group's layout exceeded the 0.3*H margin).  SimRunner
@@ -79,26 +93,31 @@ class StatsReporter:
         """Fold the queued device stats into the host-side aggregates."""
         if not self._pending:
             return
+        has_by = any(st.overflow_by is not None for st in self._pending)
         rows = torch.stack([_column(st) for st in self._pending]).cpu().tolist()
         self._pending.clear()
-        for rho, speed, ov, stale in rows:
+        for rho, speed, ov, stale, *by in rows:
             self._window_rho = max(self._window_rho, rho)
             self._window_speed = max(self._window_speed, speed)
             self._worst_rho = max(self._worst_rho, rho)
             self._worst_speed = max(self._worst_speed, speed)
             self._overflow += int(ov)
             self._stale += int(stale)
+            if has_by:
+                base = np.zeros(4, np.int64) if self._overflow_by is None else self._overflow_by
+                self._overflow_by = base + np.asarray(by, np.int64)
 
     def snapshot(self) -> tuple:
         """Drain and capture the host-side aggregates (SimRunner's elastic
         recovery rewinds the reporter with the state)."""
         self._drain()
+        by = None if self._overflow_by is None else self._overflow_by.copy()
         return (self.t, self._last_report_t, self._worst_rho,
-                self._worst_speed, self._overflow, self._stale)
+                self._worst_speed, self._overflow, by, self._stale)
 
     def restore(self, snap: tuple) -> None:
         (self.t, self._last_report_t, self._worst_rho, self._worst_speed,
-         self._overflow, self._stale) = snap
+         self._overflow, self._overflow_by, self._stale) = snap
         self._window_rho = 0.0
         self._window_speed = 0.0
         self._pending.clear()

@@ -146,8 +146,8 @@ def test_port_imports_no_jax_and_cpu_path_launches_nothing():
     """In a fresh interpreter the port (the renderer, the host loop, the
     CLI, the bench, the probes, the jnp oracle and the slab decomposition
     included) leaves JAX out of sys.modules, and a primed CPU run, a render,
-    a 2-slab step and both probes go through the plain versions only
-    (counters at 0)."""
+    a 2-slab step, a 2-slab sticky group and its frame, a window-dd runner
+    and both probes go through the plain versions only (counters at 0)."""
     code = (
         "import sys, torch\n"
         "import pi_sph_fluid_tpu_torch as T\n"
@@ -171,6 +171,10 @@ def test_port_imports_no_jax_and_cpu_path_launches_nothing():
         "fb, ov = T.WindowRenderer(e).render_from_frame(s, fr)\n"
         "dd = domain_window.WindowDomain(cfg, b, g, f.n, comm.LocalComm(2), 'cpu', tq=32, qb=8)\n"
         "dd.make_step()(dd.init(f), (0.0, -9.81))\n"
+        "ds, _ = dd.make_multi_step(resort_every=2)(dd.init(f), [(0.0, -9.81)] * 2)\n"
+        "dd.make_render()(ds)\n"
+        "host_loop.SimRunner(cfg, f, T.build_drop_scene(cfg, 'cpu')[1], backend='window-dd',\n"
+        "                    engine_opts=dict(slabs=2, tq=32, qb=8), device='cpu')\n"
         "simulation.make_multi_step(cfg, b, g)(simulation.prime(f, b, g, (0.0, -9.81), cfg),\n"
         "                                      [(0.0, -9.81)])\n"
         "src, al, un = up.make_starts(4096, 2)\n"

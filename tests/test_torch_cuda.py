@@ -340,3 +340,59 @@ def test_window_domain_launches_both_kernels_once_a_slab():
     for f, tol in (("x", 1e-6), ("y", 1e-6), ("u", 1e-5), ("v", 1e-5)):
         torch.testing.assert_close(getattr(out["cuda"], f).cpu(), getattr(out["cpu"], f),
                                    rtol=0, atol=tol)
+
+
+def _pool_domain(n: int, d: int, dev):
+    import pi_sph_fluid_tpu_torch as T
+    from pi_sph_fluid_tpu_torch.parallel import LocalComm, WindowDomain
+
+    cfg = T.SPHConfig(r=(6.35 / n) ** 0.5)
+    fluid, braw = T.build_pool_scene(cfg, "cpu")
+    b, bg = T.prepare_boundary(braw, cfg)
+    return WindowDomain(cfg, b, bg, fluid.n, LocalComm(d), dev), fluid
+
+
+@pytest.mark.cuda
+def test_sticky_group_launches_both_kernels_once_a_slab_a_tick():
+    """A 3-slab WindowDomain of a 20k pool at resort_every=4 on the card:
+    every tick, carried ones included, launches the density and the forces
+    kernel once a slab; 8 ticks land within test_parallel_window.py's gates
+    (1e-6 m, 1e-5 m/s) of the same domain on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    g8 = np.tile(np.float32(G), (8, 1))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        dd, fluid = _pool_domain(20_000, 3, dev)
+        before = (wk.density_window.launches, wk.forces_window.launches)
+        state, st = dd.make_multi_step(resort_every=4)(dd.init(fluid), g8)
+        after = (wk.density_window.launches, wk.forces_window.launches)
+        assert after == tuple(n + (24 if dev == "cuda" else 0) for n in before), (dev, after)
+        assert int(st["overflow"].max()) == 0 and int(st["stale"].sum()) == 0
+        assert int(st["n_valid"][-1]) == fluid.n
+        out[dev] = dd.gather(state)
+    for f, tol in (("x", 1e-6), ("y", 1e-6), ("u", 1e-5), ("v", 1e-5)):
+        torch.testing.assert_close(getattr(out["cuda"], f).cpu(), getattr(out["cpu"], f),
+                                   rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_domain_render_launches_one_field_kernel_a_slab():
+    """The per-slab renderer of a 3-slab 20k pool on the card launches the
+    field kernel once a slab a frame, and its frame agrees with the same
+    domain's frame on the CPU on at least 99.9% of the pixels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    import pi_sph_fluid_tpu_torch as T
+
+    frames = {}
+    for dev in ("cpu", "cuda"):
+        dd, fluid = _pool_domain(20_000, 3, dev)
+        render = dd.make_render(64, 128)
+        before = mw.field_window.launches
+        fb, ov = render(dd.init(fluid))
+        torch.cuda.synchronize()
+        assert mw.field_window.launches == before + (3 if dev == "cuda" else 0)
+        assert int(ov) == 0
+        frames[dev] = T.unpack_framebuffer(fb.cpu().numpy())
+    assert (frames["cuda"] == frames["cpu"]).mean() >= 0.999

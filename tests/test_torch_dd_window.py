@@ -218,8 +218,16 @@ def test_export_init_resumes_exactly(scene):
 
 
 def test_sticky_groups_not_ported_yet(scene):
-    with pytest.raises(NotImplementedError, match="10c"):
-        _port(scene, 2).make_multi_step(resort_every=4)
+    """Sticky groups are ported now (tests/test_torch_dd_sticky.py holds
+    them against the exact mode and JAX): resort_every=4 builds and runs a
+    group on 2 slabs, with the drift guard's ``stale`` beside JAX's stats."""
+    td = _port(scene, 2)
+    _, st = td.make_multi_step(resort_every=4)(td.init(scene["tfluid"]),
+                                               np.tile(np.float32(G), (4, 1)))
+    assert set(st) == {"max_rho_error_pct", "max_speed", "overflow", "n_valid",
+                       "overflow_by", "stale"}
+    assert st["stale"].shape == (4,) and int(st["stale"].sum()) == 0
+    assert int(st["n_valid"][-1]) == scene["fluid"].n
 
 
 def _poison(fluid, rows):

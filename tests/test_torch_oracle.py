@@ -407,7 +407,8 @@ def test_cli_backend_reference(tmp_path, capsys):
     """`run --backend reference` writes frames and a checkpoint of the
     grid-ordered fluid with its ids and accelerations (the JAX CLI's
     reference format), and `bench --backend reference` names its backend;
-    the DD backend still raises."""
+    the DD backend builds beside it, with a domain and no engine
+    (tests/test_torch_dd_runner.py runs it)."""
     path, ck = tmp_path / "f.bin", tmp_path / "s.npz"
     dt = CFG.dt
     res = cli.main(["run", "--backend", "reference", "--device", "cpu", "--scene",
@@ -423,6 +424,6 @@ def test_cli_backend_reference(tmp_path, capsys):
     out = cli.main(["bench", "--backend", "reference", "--device", "cpu", "--n", "500",
                     "--steps", "4"])
     assert out["backend"] == "reference" and out["neighbor_overflow"] == 0
-    with pytest.raises(NotImplementedError):
-        T.SimRunner(CFG, *T.build_drop_scene(CFG, "cpu"), backend="window-dd",
-                    device="cpu")
+    dd = T.SimRunner(CFG, *T.build_drop_scene(CFG, "cpu"), backend="window-dd",
+                     device="cpu", render=False)
+    assert dd.engine is None and dd.domain.n_slabs == 1

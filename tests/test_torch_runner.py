@@ -44,14 +44,20 @@ def _fast(speed):
 
 
 def test_other_backends_not_ported():
-    """Slab domain decomposition is still to port; the jnp oracle is
-    ported (tests/test_torch_oracle.py) and builds without an engine."""
+    """Every backend of the JAX runner is ported under the port's names:
+    slab domain decomposition ("window-dd", tests/test_torch_dd_runner.py)
+    builds on the CPU with its domain and no engine, the jnp oracle
+    (tests/test_torch_oracle.py) without either; a JAX name or an unknown
+    one raises."""
     fluid, braw = T.build_drop_scene(CFG, "cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        T.SimRunner(CFG, fluid, braw, backend="window-dd", device="cpu")
-    assert T.SimRunner(CFG, fluid, braw, backend="reference", device="cpu").engine is None
-    with pytest.raises(ValueError, match="unknown backend"):
-        T.SimRunner(CFG, fluid, braw, backend="pallas", device="cpu")
+    dd = T.SimRunner(CFG, fluid, braw, backend="window-dd", device="cpu",
+                     engine_opts=dict(KW, slabs=2))
+    assert dd.engine is None and dd.domain.n_slabs == 2
+    ref = T.SimRunner(CFG, fluid, braw, backend="reference", device="cpu")
+    assert ref.engine is None and ref.domain is None
+    for name in ("pallas", "pallas-dd", "no-such-backend"):
+        with pytest.raises(ValueError, match="unknown backend"):
+            T.SimRunner(CFG, fluid, braw, backend=name, device="cpu")
 
 
 def test_render_dispatch_writes_one_frame_per_dispatch(tmp_path):
