@@ -45,6 +45,17 @@ Phases, each printing its own line with its seconds:
    exactly 4 field launches a frame, the frame against
    ``WindowRenderer.render`` on the gathered state, slab 1's field kernel
    against its plain version, ms, launches and syncs a frame;
+   dd_multiprocess: the same pool as 4 slabs over two processes on this
+   card (the worker, pi_sph_fluid_tpu_torch/tools/multihost_worker.py,
+   here started as ``chip_smoke.py --dd-worker``; gloo through a file
+   store, every exchanged buffer staged through host memory): one exact
+   step, 64 sticky ticks at r64 and one 64x128 frame, whose export and
+   frame must equal the same sequence over LocalComm(4) in this process
+   bitwise; per process 2 density and 2 forces launches a tick and 2 field
+   launches a frame, ms a tick at r64 beside the in-process run's, a
+   carried tick's host syncs, launches and staged bytes, its peak device
+   memory, and its first slab's carried tick and frame through the three
+   kernels against their plain versions;
 6. the 3k-particle C golden drop, all 2000 steps through the kernels;
 7. the 1M pool: 64 ticks at resort_every=64, after one warm-up group;
 8. render: render_from_frame ms per frame at 64x128 and 256x128 on the
@@ -65,6 +76,10 @@ Phases, each printing its own line with its seconds:
    runner_dd: ``cli run --backend window-dd --slabs 4`` on the dam at the
    CLI defaults with a file display: 4 field launches a dispatch run, one
    frame a dispatch less one a revert, overflow and stale 0 at the end;
+   runner_dd_mp: the same command as two processes on this card
+   (``--num-processes 2 --dist-backend gloo``): process 0's frame file
+   byte-equal to runner_dd's and its recovery lines the same, process 1
+   writing no frame and printing nothing on its standard output;
 12. probes: the two probe scripts as a user runs them (``python -m
    pi_sph_fluid_tpu_torch.tools.unaligned_probe`` / ``.span_dma_probe``,
    their ``main()`` with the launch counters set to 0 just before and read
@@ -75,7 +90,9 @@ Phases, each printing its own line with its seconds:
    call (``src[:, idx]``) by events and by device time, and the
    aligned/unaligned, B/A and C/A ratios;
 13. bench: ``python -m pi_sph_fluid_tpu_torch.bench`` in a subprocess at its
-   defaults; its JSON line must show overflow, stale and render overflow 0;
+   defaults; its JSON line must show overflow, stale and render overflow 0,
+   and its ``dd`` and ``dd_strong`` rows one slab each, overflow and stale
+   0, scaling across cards not measured;
 14. oracle: the reference backend on the card: the 269 drop through step
    500 against the C golden at test_parity.py's gates, with no window
    kernel launched, then ``cli run --backend reference`` with a file
@@ -89,8 +106,11 @@ any result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -116,12 +136,13 @@ from pi_sph_fluid_tpu_torch.parallel import LocalComm, WindowDomain  # noqa: E40
 from pi_sph_fluid_tpu_torch.parallel import domain_window  # noqa: E402
 from pi_sph_fluid_tpu_torch.render import metaballs_window as mw  # noqa: E402
 from pi_sph_fluid_tpu_torch.tools import launch_probe  # noqa: E402
+from pi_sph_fluid_tpu_torch.tools import multihost_worker  # noqa: E402
 from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp  # noqa: E402
 from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up  # noqa: E402
 from pi_sph_fluid_tpu_torch.utils.profiling import (bound, call_device_ms,  # noqa: E402
                                                     covered, device_breakdown,
-                                                    event_ms, kernel_device_ms,
-                                                    pool_engine)
+                                                    device_memory, event_ms,
+                                                    kernel_device_ms, pool_engine)
 
 G = (0.0, -9.81)
 DEV = torch.device("cuda")
@@ -154,6 +175,15 @@ DD_STICKY_GATES = dict(xy=1e-6, u=1e-5, single_xy=1e-5, single_u=1e-4)
 DD_CARRIED = (2, 10)    # group lengths whose profiles differ by 8 carried ticks
 DD_RENDER_SLABS, DD_RENDER_FRAMES = 4, 10
 RUNNER_DD_SLABS, RUNNER_DD_DISPATCHES = 4, 12   # cli run --backend window-dd, the dam
+# its ticks a dispatch: one 60 Hz frame, rounded up to resort_every=8
+RUNNER_DD_K = -(-int(round(1.0 / (60.0 * T.SPHConfig().dt))) // 8) * 8
+# the decomposition over two processes on this card: DD_MP_SLABS slabs of
+# the 100k pool, half in each; one exact step, DD_MP_TICKS ticks in one
+# sticky group, one frame
+DD_MP_PROCS, DD_MP_SLABS, DD_MP_TICKS = 2, 4, 64
+MP_TIMEOUT = 300        # seconds for a pair of processes
+# what the runner says when it recovers or changes its sticky period
+RECOVERY = ("OVERFLOW", "WINDOW OVERFLOW", "STALE DRIFT:", "RESORT LADDER")
 # wrapper (with its launch counter), the TPU kernel it replaces and its source
 WINDOW_SRC = "pi_sph_fluid_tpu_torch/csrc/window_kernels.cu"
 PROBE_SRC = "pi_sph_fluid_tpu_torch/csrc/probe_kernels.cu"
@@ -837,17 +867,19 @@ def run_runner_dd() -> dict:
     dispatches, the counters set to 0 just before and read just after:
     frames written = dispatches run less one a revert, field launches = 4 x
     the dispatches run (replays included), density and forces launched,
-    overflow and stale 0 at the end."""
-    cfg = T.SPHConfig()
-    k = -(-int(round(1.0 / (60.0 * cfg.dt))) // 8) * 8
+    overflow and stale 0 at the end.  Also returns the frame file's bytes
+    and the recovery lines, which runner_dd_mp holds its processes to."""
+    k = RUNNER_DD_K
+    err = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
         path = pathlib.Path(tmp) / "frames.bin"
         _reset_counts()
-        res = cli.main(["run", "--backend", "window-dd", "--slabs", str(RUNNER_DD_SLABS),
-                        "--device", "cuda", "--scene", "dam", "--display", f"file:{path}",
-                        "--seconds", repr(RUNNER_DD_DISPATCHES * k * cfg.dt)])
+        with contextlib.redirect_stderr(err):
+            res = cli.main(_runner_dd_argv(path))
         counts = _counts()
-        frames = np.fromfile(path, np.uint8).reshape(-1, 1024)
+        raw = path.read_bytes()
+    sys.stderr.write(err.getvalue())
+    frames = np.frombuffer(raw, np.uint8).reshape(-1, 1024)
     info = dict(k=k, dispatches=RUNNER_DD_DISPATCHES, run=res.dispatches,
                 recoveries=res.recoveries, frames=frames.shape[0], launches=counts,
                 overflow=res.reporter.total_overflow, stale=res.reporter.total_stale,
@@ -860,6 +892,205 @@ def run_runner_dd() -> dict:
     assert counts["density_window"] > 0 and counts["forces_window"] > 0, info
     assert res.reporter.total_overflow == 0 and res.reporter.total_stale == 0, info
     assert all(T.unpack_framebuffer(fb).any() for fb in frames), "an unlit frame"
+    info["recovery_lines"] = _recovery(err.getvalue())
+    info["_frames"] = raw
+    return info
+
+
+def _runner_dd_argv(frames) -> list:
+    """runner_dd's ``cli run`` arguments, with the frame file ``frames``."""
+    return ["run", "--backend", "window-dd", "--slabs", str(RUNNER_DD_SLABS),
+            "--device", DEV.type, "--scene", "dam", "--display", f"file:{frames}",
+            "--seconds", repr(RUNNER_DD_DISPATCHES * RUNNER_DD_K * T.SPHConfig().dt)]
+
+
+def _recovery(text: str) -> list:
+    """The runner's recovery and ladder lines of a run's standard error."""
+    return [ln for ln in text.splitlines() if ln.startswith(RECOVERY)]
+
+
+def _spawn_pair(argv_of) -> list:
+    """``python argv_of(i)`` for i < DD_MP_PROCS, all started together from
+    the checkout's root; waits for all, kills all at MP_TIMEOUT and raises;
+    raises unless every one exits 0.  Returns each one's (stdout, stderr),
+    whose last lines it prints."""
+    procs = [subprocess.Popen([sys.executable, *argv_of(i)], cwd=str(HERE),
+                              env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                                  [str(HERE), os.environ.get("PYTHONPATH", "")])),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for i in range(DD_MP_PROCS)]
+    try:
+        outs = [p.communicate(timeout=MP_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        tail = "\n".join((out + err).strip().splitlines()[-6:])
+        print(f"  process {i} exited {p.returncode}:\n    " + tail.replace("\n", "\n    "),
+              flush=True)
+        assert p.returncode == 0, f"process {i} exited {p.returncode}:\n{err[-4000:]}"
+    return outs
+
+
+def dd_worker(argv: list) -> int:
+    """One process of the dd_multiprocess phase (``chip_smoke.py --dd-worker``
+    followed by the worker's flags): the worker's run
+    (multihost_worker.main, which prints the ``multihost OK`` line) with
+    the counters set to 0 just before and read just after; then, every
+    process making the same collective calls in the same order: ms a tick
+    of the sticky group from the exact step's state (CUDA events, median of
+    DD_RUNS), the bytes staged a tick, a carried tick's host syncs,
+    launches, device-busy ms and staged bytes (a 10-tick group less a
+    2-tick one, over 8), this process's first slab through the density and
+    forces kernels on its carried tick (hold_physics) and through the field
+    kernel on its frame, against their plain versions; and the peak device
+    memory.  Prints one ``DDMP {...}`` line."""
+    import torch.distributed as dist
+
+    _reset_counts()
+    res = multihost_worker.main(argv)
+    _sync()
+    counts = _counts()
+    dd, comm = res.dd, res.comm
+    first, n_local = comm.slabs.start, len(comm.slabs)
+    out = dict(process=comm.rank, slabs=[first, comm.slabs.stop - 1], launches=counts,
+               staged_bytes_run=comm.staged_bytes)
+    multi = dd.make_multi_step(resort_every=DD_MP_TICKS)
+    out["r64_ms_per_tick"], out["r64_runs_ms"] = _median_ms(
+        lambda: multi(res.exact, _gravity(DD_MP_TICKS)), DD_MP_TICKS)
+    before = comm.staged_bytes
+    multi(res.exact, _gravity(DD_MP_TICKS))
+    out["staged_bytes_per_tick"] = (comm.staged_bytes - before) / DD_MP_TICKS
+    prof, staged = {}, {}
+    for kk in DD_CARRIED:
+        group = dd.make_multi_step(resort_every=kk)
+        group(res.exact, _gravity(kk))
+        before = comm.staged_bytes
+        prof[kk] = _counted(lambda: group(res.exact, _gravity(kk)), 1, "g")
+        staged[kk] = comm.staged_bytes - before
+    extra = DD_CARRIED[1] - DD_CARRIED[0]
+    for key in prof[DD_CARRIED[0]]:
+        out[f"carried_{key[2:]}_per_tick"] = \
+            (prof[DD_CARRIED[1]][key] - prof[DD_CARRIED[0]][key]) / extra
+    out["carried_staged_bytes_per_tick"] = \
+        (staged[DD_CARRIED[1]] - staged[DD_CARRIED[0]]) / extra
+
+    # the first local slab's carried tick: the second tick's first call
+    calls, pair_acc = [], engine_v3.WindowEngine._pair_acc
+
+    def spy(self, pk, ctx, *args):
+        calls.append((self, pk, ctx))
+        return pair_acc(self, pk, ctx, *args)
+
+    with mock.patch.object(engine_v3.WindowEngine, "_pair_acc", spy):
+        dd.make_multi_step(resort_every=2)(res.state, _gravity(2))
+    h = hold_physics(*calls[n_local])
+    out[f"slab{first}_carried_kernels_vs_plain"] = {
+        name: h[name] for name in ("rel_rho", "d_rho", "d_p", "d_acc", "d_uv")}
+    fcalls = []
+
+    def fspy(*args):
+        fcalls.append(args)
+        return mw.field_window(*args)
+
+    with mock.patch.object(domain_window, "field_window", fspy):
+        dd.make_render(*multihost_worker.FRAME)(res.state)
+    fk, fp = mw.field_window(*fcalls[0]), mw.field_window_plain(*fcalls[0])
+    _sync()
+    out[f"slab{first}_field_max_abs_err"] = float((fk - fp).abs().max())
+    out[f"slab{first}_field_rel_err"] = rel = \
+        out[f"slab{first}_field_max_abs_err"] / float(fp.abs().max())
+    out["peak_bytes_in_use"] = device_memory()[f"cuda:{DEV.index or 0}"]["peak_bytes_in_use"]
+    print("DDMP " + json.dumps(out), flush=True)
+    assert rel <= 1e-5, f"slab {first}: field kernel rel err {rel}"
+    dist.destroy_process_group()
+    return 0
+
+
+def run_dd_multiprocess(results: dict) -> dict:
+    """The 100k pool as DD_MP_SLABS slabs over DD_MP_PROCS processes on this
+    card (dd_worker), against the same sequence over LocalComm(DD_MP_SLABS)
+    in this process: the export (every FluidState field, au, av) and the
+    frame bitwise; in each process exactly (slabs it holds) density and
+    forces launches a tick and field launches a frame and no other kernel;
+    its first slab's kernels within the dd_sticky and dd_render gates
+    (hold_physics raises; the field within 1e-5 of max |field|).  ms a tick
+    at r64 of each process beside the in-process run's."""
+    dd, fluid = multihost_worker.build(LocalComm(DD_MP_SLABS), DEV, N_POOL)
+    _reset_counts()
+    ref = multihost_worker.run(dd, fluid, DD_MP_TICKS, DD_MP_TICKS)
+    _sync()
+    ref_counts = _counts()
+    multi = dd.make_multi_step(resort_every=DD_MP_TICKS)
+    out = {"in_process_launches": json.dumps(ref_counts)}
+    out["in_process_r64_ms_per_tick"], runs = _median_ms(
+        lambda: multi(ref.exact, _gravity(DD_MP_TICKS)), DD_MP_TICKS)
+    out["in_process_r64_runs_ms"] = json.dumps(runs)
+    per = DD_MP_SLABS // DD_MP_PROCS
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = pathlib.Path(tmp) / "export.npz"
+        url = (pathlib.Path(tmp) / "store").as_uri()
+        outs = _spawn_pair(lambda i: [
+            str(HERE / "chip_smoke.py"), "--dd-worker", "--coordinator", url,
+            "--num-processes", str(DD_MP_PROCS), "--process-id", str(i),
+            "--slabs-per-process", str(per), "--device", DEV.type, "--backend", "gloo",
+            "--n", str(N_POOL), "--steps", str(DD_MP_TICKS),
+            "--resort-every", str(DD_MP_TICKS), "--out", str(npz)])
+        got = dict(np.load(npz))
+    workers = []
+    for i, (stdout, _) in enumerate(outs):
+        assert f"[proc {i}] multihost OK" in stdout, f"process {i}: no multihost OK line"
+        workers.append(json.loads(next(ln for ln in stdout.splitlines()
+                                        if ln.startswith("DDMP "))[5:]))
+    fl, au, av = ref.export
+    want = {f: getattr(fl, f).cpu().numpy() for f in type(fl)._fields}
+    want.update(au=au.cpu().numpy(), av=av.cpu().numpy(), fb=ref.fb)
+    unequal = [key for key, w in want.items() if not np.array_equal(got[key], w)]
+    for w in workers:
+        print(f"  process {w['process']}: " + json.dumps(w), flush=True)
+        out[f"p{w['process']}"] = json.dumps(w)
+    out["bitwise_equal"] = not unequal
+    print(f"  in process over LocalComm({DD_MP_SLABS}): launches {json.dumps(ref_counts)}, "
+          f"{out['in_process_r64_ms_per_tick']:.4f} ms a tick at r{DD_MP_TICKS}; "
+          f"fields unequal to the two processes' {unequal}", flush=True)
+    for name in SIM_KERNELS:
+        results[name]["dd_mp_launches"] = [w["launches"][name] for w in workers]
+    ticks = 1 + DD_MP_TICKS
+    assert not unequal, f"dd_multiprocess: {unequal} differ from the in-process run"
+    assert ref_counts["density_window"] == ref_counts["forces_window"] == DD_MP_SLABS * ticks
+    for w in workers:
+        c = w["launches"]
+        assert c["density_window"] == c["forces_window"] == per * ticks, w
+        assert c["field_window"] == per, w
+        assert all(c[name] == 0 for name in KERNELS if name not in SIM_KERNELS), w
+    return out
+
+
+def run_runner_dd_mp(ref: dict) -> dict:
+    """runner_dd's command as DD_MP_PROCS processes on this card over gloo:
+    process 0's frame file byte-equal to runner_dd's (``ref``), the same
+    recovery lines; process 1 writes no frame file and prints nothing on
+    its standard output (no header, no result)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        url = (pathlib.Path(tmp) / "store").as_uri()
+        frames = [pathlib.Path(tmp) / f"frames{i}.bin" for i in range(DD_MP_PROCS)]
+        outs = _spawn_pair(lambda i: [
+            "-m", "pi_sph_fluid_tpu_torch.cli", *_runner_dd_argv(frames[i]),
+            "--num-processes", str(DD_MP_PROCS), "--coordinator", url,
+            "--process-id", str(i), "--dist-backend", "gloo"])
+        raw = frames[0].read_bytes()
+        others = [f.exists() for f in frames[1:]]
+    recovery = _recovery(outs[0][1])
+    info = dict(frames=len(raw) // 1024, frames_equal=raw == ref["_frames"],
+                recovery_lines=recovery, others_wrote_frames=others,
+                others_stdout=[o for o, _ in outs[1:]])
+    print("  " + json.dumps(info), flush=True)
+    assert raw == ref["_frames"], "process 0's frames differ from runner_dd's"
+    assert recovery == ref["recovery_lines"], (recovery, ref["recovery_lines"])
+    assert not any(others), "a process above 0 wrote frames"
+    assert all(o == "" for o in info["others_stdout"]), info["others_stdout"]
     return info
 
 
@@ -941,6 +1172,9 @@ def run() -> dict:
     del last
 
     t0 = time.perf_counter()
+    _phase("dd_multiprocess", t0, **run_dd_multiprocess(results))
+
+    t0 = time.perf_counter()
     worst = run_golden()
     _phase("golden_3k", t0, steps=GOLDEN_STEPS, worst=json.dumps(worst))
 
@@ -980,7 +1214,11 @@ def run() -> dict:
     info = run_runner_dd()
     for name in SIM_KERNELS:
         results[name]["runner_dd_launches"] = info["launches"][name]
-    _phase("runner_dd", t0, **info)
+    runner_dd = {key: info.pop(key) for key in ("_frames", "recovery_lines")}
+    _phase("runner_dd", t0, recovery_lines=json.dumps(runner_dd["recovery_lines"]), **info)
+
+    t0 = time.perf_counter()
+    _phase("runner_dd_mp", t0, **run_runner_dd_mp(runner_dd))
 
     t0 = time.perf_counter()
     _phase("probes", t0, **run_probes(results))
@@ -1212,10 +1450,14 @@ def run_bench() -> dict:
         assert line[k] == 0, (k, line)
     assert line["m1"]["neighbor_overflow"] == 0 and line["m1"]["stale_drift"] == 0, line
     assert line["device"] == torch.cuda.get_device_name(0), line
-    assert line["not_ported"] == ["dd", "dd_strong"], line
+    assert "not_ported" not in line, line
+    for row in (line["dd"], *line["dd_strong"].values()):
+        assert row["slabs_measured"] == 1 and row["overflow"] == 0, row
+        assert row["stale_drift"] == 0 and "not measured" in row["scaling_across_cards"], row
     print(json.dumps(line), flush=True)
     return dict(value=line["value"], exact_ps_per_s=line["exact_ps_per_s"],
-                m1_ms_per_step=line["m1"]["ms_per_step"])
+                r8_ps_per_s=line["r8_ps_per_s"], m1_ms_per_step=line["m1"]["ms_per_step"],
+                dd_ps_per_s_per_slab=line["dd"]["ps_per_s_per_slab"])
 
 
 def run_oracle() -> dict:
@@ -1265,6 +1507,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False); this script runs only on the GPU")
+    if sys.argv[1:2] == ["--dd-worker"]:
+        return dd_worker(sys.argv[2:])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]

@@ -7,11 +7,16 @@ take ``--backend window`` (the default, the JAX CLI's "pallas": the window
 kernels), ``--backend window-dd --slabs N`` (slab domain decomposition, all
 N slabs on the one device; the JAX CLI's "pallas-dd") or ``--backend
 reference`` (the jnp oracle) on ``--device`` (default ``cuda``; there is no
-fallback to the CPU when no GPU is found).
+fallback to the CPU when no GPU is found).  ``--num-processes P
+--process-id i --coordinator HOST:PORT`` runs window-dd over P processes
+(parallel/launch.py), each holding ``--slabs / P`` slabs; process 0 owns
+the display and the printed lines.
 
     python -m pi_sph_fluid_tpu_torch.cli run --scene drop --seconds 3 --display terminal
     python -m pi_sph_fluid_tpu_torch.cli run --device cpu --scene drop --display file:/tmp/f.bin
     python -m pi_sph_fluid_tpu_torch.cli run --backend window-dd --slabs 4 --scene dam
+    python -m pi_sph_fluid_tpu_torch.cli run --backend window-dd --slabs 4 --num-processes 2 \
+        --process-id 0 --coordinator 127.0.0.1:29500 --dist-backend gloo --scene dam
     python -m pi_sph_fluid_tpu_torch.cli bench --n 1000000 --steps 64 --render
     python -m pi_sph_fluid_tpu_torch.cli run --backend reference --scene drop --display file:/tmp/f.bin
 """
@@ -111,9 +116,45 @@ def _engine_opts(args) -> dict:
     return opts
 
 
+def _maybe_init_distributed(args) -> bool:
+    """Join the process group of a run over several processes before the
+    runner is built (`cli.py:103-124`); returns whether this process owns
+    the I/O.  Processes above 0 run the same steps and frames (a frame is a
+    collective) but display nothing and print no result."""
+    if args.num_processes <= 1:
+        return True
+    if args.coordinator is None:
+        raise SystemExit("--num-processes > 1 needs --coordinator HOST:PORT "
+                         "(process 0's address) or a file:// URL")
+    if args.process_id is None or not 0 <= args.process_id < args.num_processes:
+        raise SystemExit("--num-processes > 1 needs --process-id in "
+                         f"0..{args.num_processes - 1}")
+    if args.backend != "window-dd":
+        raise SystemExit("--num-processes > 1 needs --backend window-dd")
+    if (args.slabs or 1) % args.num_processes:
+        raise SystemExit(f"--slabs {args.slabs or 1} is not a multiple of "
+                         f"--num-processes {args.num_processes}")
+    if getattr(args, "gravity", "constant") in ("mpu6050", "web"):
+        raise SystemExit("--num-processes > 1 needs a gravity source every "
+                         "process reads alike (constant, rotate, trace:)")
+    from .parallel.launch import init_distributed
+
+    init_distributed(args.coordinator, args.num_processes, args.process_id,
+                     backend=args.dist_backend, device=args.device)
+    if args.process_id == 0:
+        return True
+    if getattr(args, "display", "none") != "none":
+        print(f"process {args.process_id}: display -> none (process 0 owns "
+              f"the display)", file=sys.stderr)
+        args.display = "none"
+    return False
+
+
 def cmd_run(args):
     from .io.host_loop import SimRunner
 
+    render = args.display != "none"
+    io_owner = _maybe_init_distributed(args)
     cfg, fluid, braw = _make_scene(args)
     loaded = None
     if args.load_state:
@@ -121,14 +162,17 @@ def cmd_run(args):
 
         loaded = load_state(args.load_state, args.device)
         fluid = loaded["fluid"]
-        print(f"resumed {fluid.n} particles from {args.load_state}", file=sys.stderr)
-    print(f"dt = {cfg.dt:.6f}    (expected ticks/s) {int(1 / cfg.dt)}")
-    print(f"n_fluid = {fluid.n}")
-    print(f"n_boundary = {braw.n}")
+        if io_owner:
+            print(f"resumed {fluid.n} particles from {args.load_state}",
+                  file=sys.stderr)
+    if io_owner:
+        print(f"dt = {cfg.dt:.6f}    (expected ticks/s) {int(1 / cfg.dt)}")
+        print(f"n_fluid = {fluid.n}")
+        print(f"n_boundary = {braw.n}")
     render_shape = _parse_render_shape(args.render_shape)
     runner = SimRunner(cfg, fluid, braw, backend=args.backend,
                        engine_opts=_engine_opts(args),
-                       render=args.display != "none",
+                       render=render,
                        render_shape=render_shape,
                        resort_every=args.resort_every,
                        auto_cap=not args.no_auto_cap,
@@ -157,11 +201,20 @@ def cmd_run(args):
         result = runner.run(
             gravity, sink, sim_seconds=args.seconds, realtime=args.realtime,
             steps_per_dispatch=args.steps_per_dispatch,
-            report_stream=sys.stderr, settle_seconds=args.settle_seconds,
+            report_stream=sys.stderr if io_owner else None,
+            settle_seconds=args.settle_seconds,
             resume=resume)
     finally:
         sink.close()
-    if args.save_state:
+    if args.save_state and runner.domain is not None:
+        # a collective: every process gathers, process 0 writes
+        fl = runner.domain.gather(result.sim)
+        if io_owner:
+            from .state import save_state
+
+            save_state(args.save_state, fluid=fl)
+            print(f"state saved to {args.save_state}", file=sys.stderr)
+    elif args.save_state:
         from .state import save_state
 
         sim = result.sim
@@ -170,8 +223,6 @@ def cmd_run(args):
             # leapfrog carry included) for a bitwise resume
             save_state(args.save_state, fluid=runner.engine.unpad(sim),
                        packed=sim.packed, ids=sim.ids, au=sim.au, av=sim.av)
-        elif runner.domain is not None:
-            save_state(args.save_state, fluid=runner.domain.gather(sim))
         else:
             save_state(args.save_state, fluid=sim.fluid, ids=sim.ids,
                        au=sim.au, av=sim.av)
@@ -185,9 +236,10 @@ def cmd_run(args):
 
         named = {c: int(n) for c, n in zip(OVERFLOW_CATEGORIES, by) if n > 0}
         extra += f", unrecovered overflow by capacity: {named}"
-    print(f"\n{result.steps} steps in {result.wall_s:.2f}s "
-          f"({result.particle_steps_per_s / 1e6:.2f}M particle-steps/s)"
-          f"{extra}", file=sys.stderr)
+    if io_owner:
+        print(f"\n{result.steps} steps in {result.wall_s:.2f}s "
+              f"({result.particle_steps_per_s / 1e6:.2f}M particle-steps/s)"
+              f"{extra}", file=sys.stderr)
     return result
 
 
@@ -195,6 +247,7 @@ def cmd_bench(args):
     from .io.gravity import ConstantGravity
     from .io.host_loop import SimRunner
 
+    io_owner = _maybe_init_distributed(args)
     # the pool scene sized to ~n particles (fill area ~6.35 m^2 of the
     # default 4x2 domain)
     cfg = SPHConfig(r=math.sqrt(6.35 / args.n))
@@ -228,7 +281,8 @@ def cmd_bench(args):
         "neighbor_overflow": result.reporter.total_overflow,
         "stale_drift": result.reporter.total_stale,
     }
-    print(json.dumps(out))
+    if io_owner:
+        print(json.dumps(out))
     return out
 
 
@@ -243,7 +297,26 @@ def _add_target(p):
                         "oracle (dense candidates, exact every tick, no cap "
                         "recovery)")
     p.add_argument("--slabs", type=int, default=None,
-                   help="window-dd: the number of slabs (default 1)")
+                   help="window-dd: the number of slabs (default 1), a "
+                        "multiple of --num-processes")
+    p.add_argument("--num-processes", type=int, default=1,
+                   help="window-dd over this many processes, each holding "
+                        "--slabs / P slabs; every process runs the same "
+                        "command but for --process-id")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's index, 0..num-processes-1 (0 owns "
+                        "the display and the printed result)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="process 0's rendezvous address (tcp), or a "
+                        "file:// URL every process can reach")
+    p.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
+                   help="the transport between processes (default: nccl "
+                        "for a CUDA --device, one card a process, each "
+                        "passing its own cuda:N; gloo for cpu).  Several "
+                        "processes on one card all pass --device cuda and "
+                        "--dist-backend gloo, which stages every exchanged "
+                        "buffer through host memory; NCCL refuses two "
+                        "processes on one card")
 
 
 def main(argv=None):
@@ -316,7 +389,13 @@ def main(argv=None):
     bp.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        import torch.distributed as dist
+
+        if args.num_processes > 1 and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

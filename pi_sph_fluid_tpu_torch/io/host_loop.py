@@ -32,7 +32,8 @@ from ..models.boundary import prepare_boundary
 from ..models.engine_v3 import WindowEngine
 from ..models.simulation import (OVERFLOW_CATEGORIES, StepStats, make_multi_step,
                                  prime)
-from ..parallel import LocalComm, WindowDomain
+from ..parallel import DistComm, LocalComm, WindowDomain
+from ..parallel.launch import is_multiprocess
 from ..render.metaballs import make_renderer
 from ..render.metaballs_window import WindowRenderer
 from ..utils.stats import StatsReporter
@@ -85,8 +86,9 @@ class SimRunner:
 
     backend: "window" (the window kernels on one device; the JAX package's
     "pallas"), "window-dd" (slab domain decomposition, parallel/
-    domain_window.py, all ``engine_opts["slabs"]`` slabs on the one device,
-    default 1; the JAX package's "pallas-dd") or "reference" (the jnp
+    domain_window.py, ``engine_opts["slabs"]`` slabs, default 1, all on the
+    one device or this process's share of them under a process group; the
+    JAX package's "pallas-dd") or "reference" (the jnp
     oracle, models/simulation.py: dense candidate windows, the oracle
     renderer, no resort ladder and no cap recovery, as in the JAX runner).
     """
@@ -193,18 +195,21 @@ class SimRunner:
 
     def _build_dd(self, grow: dict | None = None):
         """(Re)build the slab decomposition (`host_loop.py:209-248`): a
-        ``WindowDomain`` over ``LocalComm(slabs)`` on the runner's device,
+        ``WindowDomain`` on the runner's device over ``DistComm(slabs)``
+        when a process group is up (parallel/launch.py; this process holds
+        its share of the slabs) and over ``LocalComm(slabs)`` otherwise,
         its sticky multi-step, a damped exact settle multi-step and the
         per-slab renderer.  ``grow`` (from _dd_growth) overrides capacities
-        and is kept for later rebuilds."""
+        and is kept for later rebuilds; every process rebuilds alike, since
+        every recovery decision is taken on stats reduced over all slabs."""
         if grow:
             self._engine_opts.update(grow)
         opts = dict(self._engine_opts)
         slabs = opts.pop("slabs", None) or 1
         self.engine = None
+        comm = DistComm(slabs) if is_multiprocess() else LocalComm(slabs)
         self.domain = WindowDomain(self.cfg, self.boundary, self._bgrid,
-                                   self.n_fluid, LocalComm(slabs), self.device,
-                                   **opts)
+                                   self.n_fluid, comm, self.device, **opts)
         self._multi = self._wrap_dd(self.domain.make_multi_step(
             resort_every=self._resort))
         self._settle_multi = self._wrap_dd(self.domain.make_multi_step(damping=0.995))

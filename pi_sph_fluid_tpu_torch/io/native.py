@@ -21,7 +21,8 @@ import numpy as np
 
 from ..ops.window._build import build_dir
 
-__all__ = ["load", "blit_halfblocks", "pace_until", "read_gravity_sysfs"]
+__all__ = ["load", "native_available", "blit_halfblocks", "pace_until",
+           "read_gravity_sysfs"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "csrc", "host_io.c")
@@ -65,6 +66,11 @@ def load():
     lib.sph_monotonic_s.argtypes = []
     lib.sph_monotonic_s.restype = ctypes.c_double
     return lib
+
+
+def native_available() -> bool:
+    """Whether the native library builds and loads (`io/native.py:70-71`)."""
+    return load() is not None
 
 
 def blit_halfblocks(framebuffer: np.ndarray, rows: int, cols: int) -> str:

@@ -22,7 +22,9 @@ the window kernels under the same machinery.
 State layout: JAX's flat (d * slab_cap,) arrays, slab i the view
 [i * slab_cap, (i + 1) * slab_cap), so that a JAX ``DomainState`` carries
 across as it is (convert.domain_state) and slabs compare lane for lane.
-A step is a loop over slabs between exchanges, all on one device.
+A process holds the slabs of ``comm.slabs`` (all of them under
+``LocalComm``, its share under ``DistComm``), in that layout over its
+share; a step is a loop over them between exchanges, on one device.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ from ..ops.neighbors import gather_candidates, span_overflow
 from ..state import BoundaryState, FluidState
 from .comm import Comm
 
-__all__ = ["DomainState", "DomainDecomposition", "INERT_X", "saturating_sum"]
+__all__ = ["DomainState", "DomainDecomposition", "INERT_X", "saturating_sum",
+           "whole_state"]
 
 INERT_X = -1e6
 _I32 = torch.int32
@@ -151,14 +154,15 @@ def saturating_sum(comm: Comm, counts: list) -> torch.Tensor:
     return torch.clamp_max(total, _I32_MAX).to(_I32)
 
 
-def _split(state: DomainState, d: int):
-    """Per-slab views: [(FluidState, ids, au, av)] of slab 0..d-1."""
-    fields = [f.view(d, -1).unbind(0) for f in state.fluid]
-    ids = state.ids.view(d, -1).unbind(0)
-    au = state.au.view(d, -1).unbind(0)
-    av = state.av.view(d, -1).unbind(0)
+def _split(state: DomainState, n: int):
+    """Per-slab views: [(FluidState, ids, au, av)] of the n slabs the state
+    holds, in order."""
+    fields = [f.view(n, -1).unbind(0) for f in state.fluid]
+    ids = state.ids.view(n, -1).unbind(0)
+    au = state.au.view(n, -1).unbind(0)
+    av = state.av.view(n, -1).unbind(0)
     return [(FluidState(*(f[s] for f in fields)), ids[s], au[s], av[s])
-            for s in range(d)]
+            for s in range(n)]
 
 
 def _join(fluids, ids, au, av) -> DomainState:
@@ -166,28 +170,32 @@ def _join(fluids, ids, au, av) -> DomainState:
                        ids=torch.cat(ids), au=torch.cat(au), av=torch.cat(av))
 
 
-def _distribute(fluid: FluidState, dest: np.ndarray, d: int, cap: int, device,
-                au=None, av=None) -> DomainState:
+def _distribute(fluid: FluidState, dest: np.ndarray, slabs: range, cap: int,
+                device, au=None, av=None) -> DomainState:
     """Host-side init shared by both decompositions (`domain.py:182-207`,
     `domain_window.py:196-232`): the particles of slab ``dest == s`` into
-    slab s's first lanes in id order, the rest inert; raises when a slab is
-    over capacity."""
+    slab s's first lanes in id order, the rest inert, for each s in
+    ``slabs`` (the slabs this process holds).  ``fluid`` and ``dest`` are
+    global, so every process raises alike when any slab is over capacity."""
+    count = np.bincount(dest, minlength=slabs.stop)
+    if count.max(initial=0) > cap:
+        s = int(np.nonzero(count > cap)[0][0])
+        raise ValueError(f"slab {s} over capacity: {count[s]} > {cap}")
+    d = len(slabs)
     src = {f: _np(getattr(fluid, f)) for f in FluidState._fields}
     out = {f: np.zeros((d, cap), np.float32) for f in FluidState._fields}
     out["x"][:] = INERT_X
     out["y"][:] = INERT_X
     acc = np.zeros((2, d, cap), np.float32)
     ids = np.full((d, cap), -1, np.int32)
-    for s in range(d):
+    for j, s in enumerate(slabs):
         sel = np.nonzero(dest == s)[0]
-        if len(sel) > cap:
-            raise ValueError(f"slab {s} over capacity: {len(sel)} > {cap}")
         for f in FluidState._fields:
-            out[f][s, :len(sel)] = src[f][sel]
+            out[f][j, :len(sel)] = src[f][sel]
         if au is not None:
-            acc[0, s, :len(sel)] = _np(au)[sel]
-            acc[1, s, :len(sel)] = _np(av)[sel]
-        ids[s, :len(sel)] = sel
+            acc[0, j, :len(sel)] = _np(au)[sel]
+            acc[1, j, :len(sel)] = _np(av)[sel]
+        ids[j, :len(sel)] = sel
 
     def put(a):
         return torch.from_numpy(a.reshape(-1)).to(device)
@@ -202,9 +210,26 @@ def _np(a) -> np.ndarray:
     return np.asarray(a)
 
 
+def whole_state(comm: Comm, state: DomainState) -> DomainState:
+    """The state of all d slabs from this process's share of them, on every
+    process (``comm.all_gather`` of each array; JAX's ``to_host``,
+    `domain_window.py:880-914`).  A comm that holds every slab returns
+    ``state`` itself."""
+    n = len(comm.slabs)
+    if n == comm.d:
+        return state
+
+    def whole(t):
+        return comm.all_gather(list(t.view(n, -1).unbind(0)))
+
+    return DomainState(fluid=FluidState(*(whole(f) for f in state.fluid)),
+                       ids=whole(state.ids), au=whole(state.au), av=whole(state.av))
+
+
 def gather_by_id(state: DomainState, extra=()):
-    """The valid slots of ``state`` in original id order: (FluidState, *the
-    ``extra`` slab arrays), on the state's device (`domain.py:371-378`)."""
+    """The valid slots of ``state`` (every slab's) in original id order:
+    (FluidState, *the ``extra`` slab arrays), on the state's device
+    (`domain.py:371-378`)."""
     ids = state.ids
     sel = torch.nonzero(ids >= 0).reshape(-1)
     inv = sel[torch.argsort(ids[sel])]
@@ -213,8 +238,8 @@ def gather_by_id(state: DomainState, extra=()):
 
 class DomainDecomposition:
     """Slab decomposition over the oracle passes (`domain.py:143-378`).
-    Slabs are ``cfg.width / d`` wide; all of them step in this process
-    through ``comm``, on ``device``."""
+    Slabs are ``cfg.width / d`` wide; the slabs of ``comm.slabs`` step in
+    this process through ``comm``, on ``device``."""
 
     def __init__(self, cfg: SPHConfig, boundary: BoundaryState,
                  boundary_grid: GridContext, n_global: int, comm: Comm, device,
@@ -244,10 +269,11 @@ class DomainDecomposition:
 
     # ------------------------------------------------------------------
     def init(self, fluid: FluidState) -> DomainState:
-        """Distribute a global FluidState into the slab arrays."""
+        """Distribute a global FluidState (the same on every process) into
+        the slab arrays of this process's slabs."""
         x = _np(fluid.x)
         dest = np.clip((x / self.slab_w).astype(np.int64), 0, self.n_slabs - 1)
-        return _distribute(fluid, dest, self.n_slabs, self.slab_cap, self.device)
+        return _distribute(fluid, dest, self.comm.slabs, self.slab_cap, self.device)
 
     # ------------------------------------------------------------------
     def _halo_masks(self, fluid: FluidState, valid, s: int):
@@ -264,7 +290,7 @@ class DomainDecomposition:
         slab (combined fluid sorted, combined ids, owner mask, pass result,
         overflow)."""
         cfg, halo_cap = self.cfg, self.halo_cap
-        masks = [self._halo_masks(f, v, s) for s, (f, _, v) in enumerate(slabs)]
+        masks = [self._halo_masks(f, v, s) for s, (f, _, v) in zip(self.comm.slabs, slabs)]
         from_l, from_r, ov_h = _exchange(self.comm, [m[0] for m in masks],
                                          [m[1] for m in masks],
                                          [list(f) for f, _, _ in slabs], halo_cap)
@@ -302,6 +328,7 @@ class DomainDecomposition:
         """``step(DomainState, g) -> (DomainState, stats)`` (`domain.py:
         260-368`); stats is JAX's dict of device scalars."""
         cfg, comm, d = self.cfg, self.comm, self.n_slabs
+        local = comm.slabs
         dt = float(np.float32(cfg.dt))
         half = float(np.float32(0.5) * np.float32(cfg.dt))
         rho0 = float(np.float32(cfg.rho_0))
@@ -309,7 +336,7 @@ class DomainDecomposition:
         def step(state: DomainState, g):
             g = host_gravity(g)
             fluids, idss, go_l, go_r, stays = [], [], [], [], []
-            for s, (f, ids, au, av) in enumerate(_split(state, d)):
+            for s, (f, ids, au, av) in zip(local, _split(state, len(local))):
                 valid = f.m > 0
                 # kick + drift (`pi_sph_fluid.c:614-624`)
                 u = f.u + half * au
@@ -332,11 +359,11 @@ class DomainDecomposition:
                 comm, go_l, go_r, [list(f) + [i] for f, i in zip(fluids, idss)],
                 self.mig_cap)
             slabs, ov_cap = [], []
-            for s in range(d):
-                f = _inert(fluids[s], stays[s])
-                ids = torch.where(stays[s], idss[s], -1)
+            for j in range(len(local)):
+                f = _inert(fluids[j], stays[j])
+                ids = torch.where(stays[j], idss[j], -1)
                 merged = [torch.cat([a, b, c]) for a, b, c in
-                          zip(list(f) + [ids], from_l[s], from_r[s])]
+                          zip(list(f) + [ids], from_l[j], from_r[j])]
                 packed, lane_valid, ov = _take_first(merged[4] > 0, merged,
                                                      self.slab_cap)
                 slabs.append((_inert(FluidState(*packed[:7]), lane_valid),
@@ -365,7 +392,7 @@ class DomainDecomposition:
 
             fluids, idss, aus, avs, ov_all, rho_err, speed2, n_valid = \
                 [], [], [], [], [], [], [], []
-            for s, (comb, comb_ids, owner, (au, av), ov_f) in enumerate(
+            for j, (comb, comb_ids, owner, (au, av), ov_f) in enumerate(
                     self._combined_pass(nxt, force_fn)):
                 fluid, ids, (au, av), valid = self._drop_ghosts(
                     comb, comb_ids, owner, (au, av))
@@ -377,7 +404,7 @@ class DomainDecomposition:
                 idss.append(ids)
                 aus.append(au)
                 avs.append(av)
-                ov_all.append(ov_mig[s] + ov_cap[s] + ov_d[s] + ov_f)
+                ov_all.append(ov_mig[j] + ov_cap[j] + ov_d[j] + ov_f)
                 rho_err.append(torch.max(torch.where(valid, fluid.rho - rho0, -rho0)))
                 speed2.append(torch.max(torch.where(
                     valid, fluid.u * fluid.u + fluid.v * fluid.v, 0.0)))
@@ -396,5 +423,5 @@ class DomainDecomposition:
 
     # ------------------------------------------------------------------
     def gather(self, state: DomainState) -> FluidState:
-        """The global fluid state in original id order."""
-        return gather_by_id(state)[0]
+        """The global fluid state in original id order, on every process."""
+        return gather_by_id(whole_state(self.comm, state))[0]

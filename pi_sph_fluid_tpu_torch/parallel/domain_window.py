@@ -23,8 +23,10 @@ and padded to the common ``nb_cap`` with psi = 0 rows at -1e6, which no
 span reaches (they are past the slab's boundary CSR), so that every slab's
 layout sizes equal JAX's.  The step calls its relayout and pair passes; on
 CUDA tensors each launches the two kernels once a slab and a tick, or
-raises.  All slabs run in this process through a ``Comm``
-(parallel/comm.py); stats stay on the device.
+raises.  A process runs the slabs of ``comm.slabs`` through a ``Comm``
+(parallel/comm.py): all of them under ``LocalComm``, its share under
+``DistComm``, each step the same collective calls in the same order in
+every process; stats stay on the device, reduced across every slab.
 
 ``make_multi_step(resort_every=k)`` runs sticky groups of k ticks: the
 first is a full step, the other k - 1 stay in the slab's layout and
@@ -53,7 +55,7 @@ from ..state import BoundaryState, FluidState
 from .comm import Comm
 from .domain import (INERT_X, DomainState, _distribute, _exchange, _first,
                      _inert, _np, _round_up, _split, _join, _take_first,
-                     gather_by_id, saturating_sum)
+                     gather_by_id, saturating_sum, whole_state)
 
 __all__ = ["WindowDomain", "GHOST_ID"]
 
@@ -91,8 +93,9 @@ def _running_max(rho_hi, sp2_hi, pk, live):
 
 
 class WindowDomain:
-    """Slab domain decomposition running the window-kernel pipeline, all
-    slabs in this process through ``comm`` on ``device``."""
+    """Slab domain decomposition running the window-kernel pipeline, the
+    slabs of ``comm.slabs`` in this process through ``comm`` on ``device``
+    (a ``DomainState`` holds those slabs' arrays)."""
 
     HALO_CELLS = 3
 
@@ -137,10 +140,13 @@ class WindowDomain:
             lcell = grow[sel] * self.local_cols + (gcol[sel] - lo)
             order = np.argsort(lcell, kind="stable")
             slices.append((sel[order], lcell[order]))
+        # nb_cap is a maximum over every slab, so every process computes
+        # every slab's slice and builds engines for its own slabs only
         self.nb_cap = _round_up(max(max(len(sel) for sel, _ in slices), 1), 8)
         n_lcells = self.lcfg.n_cells
         self.engines = []
-        for s, (sel, lcell) in enumerate(slices):
+        for s in comm.slabs:
+            sel, lcell = slices[s]
             shift = np.float32(s * self.k_cols - hc) * cell
             n = len(sel)
 
@@ -165,18 +171,19 @@ class WindowDomain:
 
     # ------------------------------------------------------------------
     def init(self, fluid: FluidState, au=None, av=None) -> DomainState:
-        """Distribute a global FluidState into the slab arrays by cell
-        column (`domain_window.py:196-232`).  ``au``/``av`` (id order, as
+        """Distribute a global FluidState (the same on every process) into
+        the arrays of this process's slabs by cell column
+        (`domain_window.py:196-232`).  ``au``/``av`` (id order, as
         ``export`` gives them) carry the leapfrog acceleration term, so a
         checkpoint resumes exactly, also into a domain built with other
         capacities; without them the first half-kick sees zero
-        acceleration, as at scene start.  Raises when a slab is over its
-        capacity."""
+        acceleration, as at scene start.  Raises, on every process, when
+        any slab is over its capacity."""
         cell = np.float32(self.cfg.cell_length)
         gcol = np.clip((_np(fluid.x) / cell).astype(np.int64), 0,
                        self.cfg.n_cell_cols - 1)
         dest = np.clip(gcol // self.k_cols, 0, self.n_slabs - 1)
-        return _distribute(fluid, dest, self.n_slabs, self.slab_cap,
+        return _distribute(fluid, dest, self.comm.slabs, self.slab_cap,
                            self.device, au, av)
 
     # ------------------------------------------------------------------
@@ -210,13 +217,14 @@ class WindowDomain:
         state in the slab's frame, overflows [halo, mig, slab], the edge
         strips whose rows went out as ghosts)."""
         cfg, comm, d, k = self.cfg, self.comm, self.n_slabs, self.k_cols
+        local = comm.slabs
         m = cfg.n_cell_cols
         dt = float(np.float32(cfg.dt))
         half = float(np.float32(0.5) * np.float32(cfg.dt))
         inv_cell = float(np.float32(1.0) / np.float32(cfg.cell_length))
 
         fluids, idss, go_l, go_r, stays = [], [], [], [], []
-        for s, (f, ids, au, av) in enumerate(_split(state, d)):
+        for s, (f, ids, au, av) in zip(local, _split(state, len(local))):
             valid = f.m > 0
             # kick + drift in global coordinates (`pi_sph_fluid.c:614-624`)
             u = f.u + half * au
@@ -237,11 +245,11 @@ class WindowDomain:
             self.mig_cap)
 
         slabs, strips, ov_cap = [], [], []
-        for s in range(d):
-            f = _inert(fluids[s], stays[s])
-            ids = torch.where(stays[s], idss[s], -1)
+        for j, s in enumerate(local):
+            f = _inert(fluids[j], stays[j])
+            ids = torch.where(stays[j], idss[j], -1)
             merged = [torch.cat([a, b, c]) for a, b, c in
-                      zip(list(f) + [ids], from_l[s], from_r[s])]
+                      zip(list(f) + [ids], from_l[j], from_r[j])]
             packed, valid, ov = _take_first(merged[4] > 0, merged, self.slab_cap)
             f = _inert(FluidState(*packed[:7]), valid)
             slabs.append((f, torch.where(valid, packed[7], -1), valid))
@@ -254,19 +262,19 @@ class WindowDomain:
                                          [list(f) for f, _, _ in slabs],
                                          self.halo_cap)
         out = []
-        for s, (f, ids, valid) in enumerate(slabs):
-            cat = [torch.cat([a, b, c]) for a, b, c in zip(f, from_l[s], from_r[s])]
+        for j, (s, (f, ids, valid)) in enumerate(zip(local, slabs)):
+            cat = [torch.cat([a, b, c]) for a, b, c in zip(f, from_l[j], from_r[j])]
             ids_f = torch.cat([
                 torch.where(valid, ids.to(torch.float32), -1.0),
                 torch.full((2 * self.halo_cap,), float(GHOST_ID),
                            dtype=torch.float32, device=self.device)])
             out.append((self._build_packed(cat, ids_f, self._shift(s)),
-                        (ov_h[s], ov_mig[s], ov_cap[s]), strips[s]))
+                        (ov_h[j], ov_mig[j], ov_cap[j]), strips[j]))
         return out
 
     def layouts(self, state: DomainState) -> list:
-        """What the next step's kernels read, per slab: (engine, packed
-        state after the relayout, its TripleCtx)."""
+        """What the next step's kernels read, per slab of this process:
+        (engine, packed state after the relayout, its TripleCtx)."""
         return [(eng, *eng._relayout(packed)[:2])
                 for eng, (packed, _, _) in zip(self.engines, self._front(state))]
 
@@ -317,8 +325,8 @@ class WindowDomain:
             g = host_gravity(g)
             fluids, idss, aus, avs = [], [], [], []
             ov_all, ov_by, rho_err, speed2, n_valid = [], [], [], [], []
-            for s, (eng, (packed, (ov_h, ov_mig, ov_cap), _)) in enumerate(
-                    zip(self.engines, self._front(state))):
+            for s, eng, (packed, (ov_h, ov_mig, ov_cap), _) in zip(
+                    self.comm.slabs, self.engines, self._front(state)):
                 pk, ctx, ov_w = eng._relayout(packed)
                 # ghost densities are complete for every candidate an owned
                 # query reaches (module docstring), so one exchange serves
@@ -400,7 +408,7 @@ class WindowDomain:
         overwrites them.  A carried tick reads nothing back to the host and
         reduces nothing across slabs; the group's end sums the per-tick
         ``stale`` counts in one call and packs the owned rows back."""
-        cfg, comm, d, spec = self.cfg, self.comm, self.n_slabs, self.spec
+        cfg, comm, spec = self.cfg, self.comm, self.spec
         n, n_in = spec.n_layout, self.n_local
         hcap, scap = self.halo_cap, self.slab_cap
         dev = self.device
@@ -503,7 +511,7 @@ class WindowDomain:
             fluids, idss, aus, avs, last = [], [], [], [], []
             zero64 = torch.zeros((), dtype=torch.int64, device=dev)
             no_by = torch.zeros(4, dtype=_I32, device=dev)
-            for s, sl in enumerate(slabs):
+            for s, sl in zip(comm.slabs, slabs):
                 rho_hi, sp2_hi = sl.hi
                 last.append(tick_stats(sl.pk, sl.live, torch.max(rho_hi) - rho0,
                                        torch.max(sp2_hi), zero64, no_by))
@@ -576,13 +584,13 @@ class WindowDomain:
         overflow is each slab's fluid lanes of a pixel window beyond the
         cap (``WindowRenderer.field``'s count) plus its halo drops, summed
         over slabs without wrapping."""
-        cfg, lcfg, comm, d = self.cfg, self.lcfg, self.comm, self.n_slabs
+        cfg, lcfg, comm = self.cfg, self.lcfg, self.comm
         dev, tq = self.device, max(qb, 64)
         tab = self._pixel_tables(rows, cols, qb, tq)
         q = torch.as_tensor(tab["q"], device=dev)
         span_idx = [span_index(lcfg, seg_q, *(torch.as_tensor(tab[key][s], device=dev)
                                               for key in ("c_first", "c_last", "has_q")))
-                    for s in range(d)]
+                    for s in comm.slabs]
         unsort = torch.as_tensor(tab["unsort"], device=dev)
         cap = pixel_window_cap(cfg, cols, qb, seg_q)
         spec = triple_spec(lcfg, self.n_local, 0, tq, qb, cap, seg_q)._replace(
@@ -591,16 +599,16 @@ class WindowDomain:
         n_cells = lcfg.n_cells
 
         def render(state: DomainState):
-            fluids = [f for f, _, _, _ in _split(state, d)]
-            strips = [self._strips(s, f.x, f.m > 0) for s, f in enumerate(fluids)]
+            fluids = [f for f, _, _, _ in _split(state, len(comm.slabs))]
+            strips = [self._strips(s, f.x, f.m > 0) for s, f in zip(comm.slabs, fluids)]
             from_l, from_r, ov_h = _exchange(comm, [st[0] for st in strips],
                                              [st[1] for st in strips],
                                              [[f.x, f.y, f.m] for f in fluids],
                                              self.halo_cap)
             fields, overflow = [], []
-            for s, f in enumerate(fluids):
+            for j, (s, f) in enumerate(zip(comm.slabs, fluids)):
                 x, y, m = (torch.cat([a, b, c]) for a, b, c in
-                           zip((f.x, f.y, f.m), from_l[s], from_r[s]))
+                           zip((f.x, f.y, f.m), from_l[j], from_r[j]))
                 live = m > 0
                 x = torch.where(live, x - self._shift(s), x)
                 keys = torch.where(live, cell_ids(x, y, lcfg),
@@ -610,10 +618,10 @@ class WindowDomain:
                 grid = start_grid(lcfg, csr_starts(keys, n_cells + 1))
                 z = torch.zeros_like(x)
                 src = torch.stack([x, y, z, z, m, z, z, z], 1)[order]
-                w_len = (grid[span_idx[s][:, :, 1]] - grid[span_idx[s][:, :, 0]]).sum(1)
+                w_len = (grid[span_idx[j][:, :, 1]] - grid[span_idx[j][:, :, 0]]).sum(1)
                 raw = torch.sum(torch.clamp_min(w_len - cap, 0).to(torch.float32))
-                overflow.append(torch.clamp_max(raw, 1e8).to(_I32) + ov_h[s])
-                fields.append(field_window(q[s], src, grid, span_idx[s], lcfg, spec))
+                overflow.append(torch.clamp_max(raw, 1e8).to(_I32) + ov_h[j])
+                fields.append(field_window(q[s], src, grid, span_idx[j], lcfg, spec))
             field = comm.all_gather(fields)[unsort] * scale
             lit = (field >= 1.0).reshape(rows, cols)
             return pack_framebuffer(lit, rows, cols), saturating_sum(comm, overflow)
@@ -622,11 +630,13 @@ class WindowDomain:
 
     # ------------------------------------------------------------------
     def gather(self, state: DomainState) -> FluidState:
-        """The global fluid state in original id order."""
-        return gather_by_id(state)[0]
+        """The global fluid state in original id order, on every process."""
+        return gather_by_id(whole_state(self.comm, state))[0]
 
     def export(self, state: DomainState):
-        """(fluid, au, av) in original id order: a lossless checkpoint with
-        the leapfrog acceleration carry; ``init(fluid, au, av)`` of this
-        domain or of one with other capacities resumes it exactly."""
-        return gather_by_id(state, (state.au, state.av))
+        """(fluid, au, av) in original id order, on every process: a
+        lossless checkpoint with the leapfrog acceleration carry;
+        ``init(fluid, au, av)`` of this domain or of one with other
+        capacities resumes it exactly."""
+        whole = whole_state(self.comm, state)
+        return gather_by_id(whole, (whole.au, whole.av))

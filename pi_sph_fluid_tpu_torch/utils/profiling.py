@@ -17,7 +17,10 @@
   for a whole library call;
 * ``covered(starts, lens, L)``: the distinct rows of [0, L) that a set of
   windows touches, and ``bound(nbytes, flops)``: the least time the card
-  could take for them (the H100 SXM peaks), for a kernel's roofline.
+  could take for them (the H100 SXM peaks), for a kernel's roofline;
+* ``trace(path)``: a ``torch.profiler`` session around a block, written to
+  ``path`` as a Chrome trace (chrome://tracing, Perfetto);
+  ``device_memory()``: each card's bytes in use, peak and limit.
 
 Run as a script on the GPU, it measures the pool at 100k and 1M particles
 (bench.py's operating points) at resort_every=1 and 64: the spread of
@@ -34,6 +37,7 @@ page pack):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -53,7 +57,7 @@ from ..render.metaballs_window import WindowRenderer
 
 __all__ = ["pool_engine", "throughput", "device_breakdown", "event_ms",
            "host_us", "kernel_device_ms", "call_device_ms", "covered", "bound",
-           "PEAK_BYTES", "PEAK_FLOPS"]
+           "trace", "device_memory", "PEAK_BYTES", "PEAK_FLOPS"]
 
 G = (0.0, -9.81)
 N_FRAMES = 20           # rendered frames per breakdown
@@ -217,6 +221,36 @@ def bound(nbytes: int, flops: int) -> dict:
     return dict(bytes=int(nbytes), flops=int(flops),
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+@contextlib.contextmanager
+def trace(path: str):
+    """Profile the block under ``torch.profiler`` (host operators, and the
+    card's kernels where there is one) and write a Chrome trace to ``path``
+    (`utils/profiling.py:25-32`).  Yields ``path``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield path
+    prof.export_chrome_trace(path)
+
+
+def device_memory() -> dict:
+    """Bytes in use, peak bytes in use (since the process started or the
+    last ``torch.cuda.reset_peak_memory_stats``) and the card's total, per
+    CUDA device by name (`utils/profiling.py:55-66`); ``{}`` without one."""
+    out = {}
+    if not torch.cuda.is_available():
+        return out
+    for i in range(torch.cuda.device_count()):
+        stats = torch.cuda.memory_stats(i)
+        out[f"cuda:{i}"] = {
+            "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+            "bytes_limit": torch.cuda.mem_get_info(i)[1],
+        }
+    return out
 
 
 def _gravity(n: int) -> np.ndarray:

@@ -144,19 +144,21 @@ def test_convert_roundtrip():
 
 def test_port_imports_no_jax_and_cpu_path_launches_nothing():
     """In a fresh interpreter the port (the renderer, the host loop, the
-    CLI, the bench, the probes, the jnp oracle and the slab decomposition
-    included) leaves JAX out of sys.modules, and a primed CPU run, a render,
+    CLI, the bench, the probes, the jnp oracle, the slab decomposition, its
+    launch plumbing and worker, and the dry runs included) leaves JAX out
+    of sys.modules, and a primed CPU run, a render,
     a 2-slab step, a 2-slab sticky group and its frame, a window-dd runner
     and both probes go through the plain versions only (counters at 0)."""
     code = (
         "import sys, torch\n"
         "import pi_sph_fluid_tpu_torch as T\n"
-        "from pi_sph_fluid_tpu_torch import bench, cli, convert\n"
+        "from pi_sph_fluid_tpu_torch import bench, cli, convert, dryrun\n"
         "from pi_sph_fluid_tpu_torch.io import display, gravity, host_loop, native, web\n"
         "from pi_sph_fluid_tpu_torch.models import simulation\n"
         "from pi_sph_fluid_tpu_torch.ops import forces, sph_operators\n"
         "from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk\n"
-        "from pi_sph_fluid_tpu_torch.parallel import comm, domain, domain_window\n"
+        "from pi_sph_fluid_tpu_torch.parallel import comm, domain, domain_window, launch\n"
+        "from pi_sph_fluid_tpu_torch.tools import multihost_worker\n"
         "from pi_sph_fluid_tpu_torch.render import metaballs, metaballs_window as mw\n"
         "from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp\n"
         "from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up\n"

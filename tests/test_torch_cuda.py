@@ -396,3 +396,31 @@ def test_domain_render_launches_one_field_kernel_a_slab():
         assert int(ov) == 0
         frames[dev] = T.unpack_framebuffer(fb.cpu().numpy())
     assert (frames["cuda"] == frames["cpu"]).mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_dist_comm_stages_cuda_tensors_through_gloo(tmp_path):
+    """Two processes on one card over gloo: DistComm's four methods on CUDA
+    tensors equal LocalComm's (tests/test_torch_dd_multiprocess.py::
+    check_dist_comm), every result back on the card, and each process
+    counts the bytes it staged: per dtype 12 slab buffers (its one send and
+    one receive of the two shifts, the sum and the max out and back, its
+    two slabs out and the four back of the gather)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from test_torch_dd_multiprocess import check_dist_comm
+
+    for res in check_dist_comm(tmp_path, "cuda"):
+        assert int(res["staged"]) == 12 * (5 * 3 * 4 + 6 * 8)
+
+
+@pytest.mark.cuda
+def test_two_nccl_ranks_on_one_card_fail_loudly(tmp_path):
+    """NCCL refuses a second rank on the card the first one holds: both
+    processes exit non-zero with NCCL's error; nothing switches to gloo."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() != 1:
+        pytest.skip("needs exactly one NVIDIA GPU")
+    from test_torch_dd_multiprocess import comm_script
+
+    outs = comm_script(tmp_path, "cuda", backend="nccl", ok=False)
+    assert any("NCCL" in err or "nccl" in err for _, err in outs), outs[0][1][-4000:]
