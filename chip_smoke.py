@@ -96,7 +96,26 @@ Phases, each printing its own line with its seconds:
 14. oracle: the reference backend on the card: the 269 drop through step
    500 against the C golden at test_parity.py's gates, with no window
    kernel launched, then ``cli run --backend reference`` with a file
-   display, frames written.
+   display, frames written;
+15. tools: the tools of pi_sph_fluid_tpu_torch/tools/ through their
+   ``main()`` at full width with cut lengths, the launch counters set to 0
+   just before and read just after: render_probe on the 1M pool at 64x128
+   (both overflow counts 0), dd_probe on the 100k pool (overflow 0 and
+   every particle valid at r1, r4, r8), dynamic_stale_probe on the 100k dam
+   in both backends (512 ticks at r4 to r64 after a shorter settle and one
+   pre-roll dispatch; stale and overflow 0), cfl_probe on the 100k pool
+   (one 0.1 sim-s report, overflow and stale 0, under 40 m/s), and
+   frames_to_gif on the runner phase's own capture, its GIF decoded here
+   frame by frame and equal to the capture;
+16. divergence: from one state, 1024 ticks at resort_every 1, 8 and 64
+   and at 1 from every fluid x one ulp up (the chaos control), by id every
+   128 ticks (max |dx, dy|, max |du, dv|, max relative d rho against r1,
+   summed stale counts), on the 100k pool primed at cap 1024 (no stale tick
+   and no overflow allowed in any run) and on the 100k dam after
+   dynamic_stale_probe's settle and pre-roll at its defaults; at the end
+   of every r64 group, the stalest tick, the state's density against the
+   jnp oracle's (models/simulation.prime) on the same fluid, within 1e-5
+   relative.
 
 Then one JSON line that holds every kernel's results, the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -135,7 +154,9 @@ from pi_sph_fluid_tpu_torch.models import simulation  # noqa: E402
 from pi_sph_fluid_tpu_torch.parallel import LocalComm, WindowDomain  # noqa: E402
 from pi_sph_fluid_tpu_torch.parallel import domain_window  # noqa: E402
 from pi_sph_fluid_tpu_torch.render import metaballs_window as mw  # noqa: E402
-from pi_sph_fluid_tpu_torch.tools import launch_probe  # noqa: E402
+from pi_sph_fluid_tpu_torch.tools import (cfl_probe, dd_probe,  # noqa: E402
+                                          dynamic_stale_probe, frames_to_gif,
+                                          launch_probe, render_probe)
 from pi_sph_fluid_tpu_torch.tools import multihost_worker  # noqa: E402
 from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp  # noqa: E402
 from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up  # noqa: E402
@@ -182,6 +203,22 @@ RUNNER_DD_K = -(-int(round(1.0 / (60.0 * T.SPHConfig().dt))) // 8) * 8
 # sticky group, one frame
 DD_MP_PROCS, DD_MP_SLABS, DD_MP_TICKS = 2, 4, 64
 MP_TIMEOUT = 300        # seconds for a pair of processes
+# the tools phase: dynamic_stale_probe cut to 512 ticks a period after a
+# shorter settle and one pre-roll dispatch; cfl_probe's one factor over one
+# 0.1 sim-s report after a short damped settle (4,096 + 772 ticks at 100k),
+# from cap 1536: from 1024 the runner recovers once and replays it all
+TOOLS_STALE_RESORTS = (4, 8, 16, 32, 64)
+TOOLS_STALE_ARGS = ["--steps", "512", "--resorts", ",".join(map(str, TOOLS_STALE_RESORTS)),
+                    "--settle", "256", "--preroll-s", "0.01"]
+TOOLS_CFL_ARGS = ["--seconds", "0.12", "--settle", "0.02", "--factors", "1.0",
+                  "--cap", "1536"]
+# the divergence phase: DIV_TICKS ticks a run in groups of DIV_GROUP (one
+# r64 group), compared every DIV_EVERY ticks; the runs beside r1, as
+# (resort_every, every fluid x one ulp up); the certificate's gate on the
+# stalest tick's density against the oracle's
+DIV_TICKS, DIV_GROUP, DIV_EVERY = 1024, 64, 128
+DIV_RUNS = {"r8": (8, False), "r64": (64, False), "r1_ulp": (1, True)}
+CERT_RHO_REL = 1e-5
 # what the runner says when it recovers or changes its sticky period
 RECOVERY = ("OVERFLOW", "WINDOW OVERFLOW", "STALE DRIFT:", "RESORT LADDER")
 # wrapper (with its launch counter), the TPU kernel it replaces and its source
@@ -1128,7 +1165,7 @@ def run_golden() -> dict:
 
 
 def run() -> dict:
-    """Phases 2-10 on the card; returns the per-kernel results."""
+    """Phases 2-16 on the card; returns the per-kernel results."""
     t0 = time.perf_counter()
     # every kernel source at once, one nvcc each; loading both libraries
     # here, before any profiler session, also lets the profiler see them
@@ -1202,6 +1239,7 @@ def run() -> dict:
 
     t0 = time.perf_counter()
     info = run_runner()
+    capture = info.pop("_capture")
     for name in SIM_KERNELS:
         results[name]["launches"] = info["launches"][name]
         results[name]["library_ms"] = None
@@ -1228,6 +1266,18 @@ def run() -> dict:
 
     t0 = time.perf_counter()
     _phase("oracle", t0, **run_oracle())
+
+    t0 = time.perf_counter()
+    info = run_tools(capture)
+    for name in SIM_KERNELS:
+        results[name]["tools_launches"] = info["launches"][name]
+    _phase("tools", t0, **info)
+
+    t0 = time.perf_counter()
+    info = run_divergence()
+    for name in SIM_KERNELS[:2]:
+        results[name]["divergence_launches"] = info["launches"][name]
+    _phase("divergence", t0, **{k: json.dumps(v) for k, v in info.items()})
     for r in results.values():
         r["share"] = r["bound_ms"] / r["device_ms"] if r.get("device_ms") else None
     return results
@@ -1313,7 +1363,7 @@ def _cli_run(n_dispatch: int, dt_factor: float, *opts: str):
     imgs = [T.unpack_framebuffer(fb) for fb in frames]
     assert all(img[-1].any() for img in imgs), "a frame with an unlit floor row"
     assert not imgs[0][:8].any(), "first frame: top page lit"
-    return res, k, counts, imgs
+    return res, k, counts, imgs, frames.tobytes()
 
 
 def run_runner() -> dict:
@@ -1326,7 +1376,7 @@ def run_runner() -> dict:
     long fine-resolution runs, --dt-factor 0.4, and starts at the runner's
     cap ceiling, 1024: no recovery, one frame per dispatch.  The defaults
     go through the recoveries (run_recovery)."""
-    res, k, counts, imgs = _cli_run(RUN_DISPATCHES, 0.4, "--cap", str(LIVE_CAP))
+    res, k, counts, imgs, capture = _cli_run(RUN_DISPATCHES, 0.4, "--cap", str(LIVE_CAP))
     assert res.recoveries == 0, f"{res.recoveries} recoveries"
     assert res.dispatches == RUN_DISPATCHES == len(imgs), (res.dispatches, len(imgs))
     # the top page (rows 0-7) is dark until the wall run-up reaches it
@@ -1339,7 +1389,7 @@ def run_runner() -> dict:
                 last_top_page_lit=top_lit,
                 wall_s=res.wall_s, ps_per_s=res.particle_steps_per_s,
                 worst_speed=res.reporter.worst_speed, launches=counts,
-                bench_1m_render_ps_per_s=bench["value"])
+                bench_1m_render_ps_per_s=bench["value"], _capture=capture)
 
 
 def run_recovery() -> dict:
@@ -1348,12 +1398,202 @@ def run_recovery() -> dict:
     must recover (grow the cap or halve resort_every, revert to the last
     clean report, replay), render every replayed dispatch through the field
     kernel, and end with overflow and stale 0."""
-    res, k, counts, imgs = _cli_run(RECOVERY_DISPATCHES, 1.0)
+    res, k, counts, imgs, _ = _cli_run(RECOVERY_DISPATCHES, 1.0)
     assert res.recoveries > 0, "no recovery at the CLI defaults"
     assert res.dispatches > RECOVERY_DISPATCHES, res.dispatches
     return dict(k=k, dispatches=RECOVERY_DISPATCHES, run=res.dispatches,
                 recoveries=res.recoveries, frames=len(imgs), launches=counts,
                 wall_s=res.wall_s, worst_speed=res.reporter.worst_speed)
+
+
+def _lzw_decode(data: bytes, mcs: int) -> list:
+    """GIF's variable-width LZW, decoded (the encoder is io/display.GifSink's)."""
+    clear = 1 << mcs
+    table, width, prev, out, acc, nbits = [], mcs + 1, None, [], 0, 0
+    for byte in data:
+        acc, nbits = acc | byte << nbits, nbits + 8
+        while nbits >= width:
+            code, acc, nbits = acc & ((1 << width) - 1), acc >> width, nbits - width
+            if code == clear:
+                table = [(i,) for i in range(clear)] + [(), ()]
+                width, prev = mcs + 1, None
+            elif code == clear + 1:
+                return out
+            else:
+                entry = table[code] if code < len(table) else prev + (prev[0],)
+                if prev is not None:
+                    table.append(prev + (entry[0],))
+                out.extend(entry)
+                if len(table) == 1 << width and width < 12:
+                    width += 1
+                prev = entry
+    raise AssertionError("no end code in a GIF frame")
+
+
+def _gif_frames(blob: bytes) -> list:
+    """The frames of a GIF89a stream, each a flat list of palette indices."""
+    assert blob[:6] == b"GIF89a", blob[:6]
+    w, h = int.from_bytes(blob[6:8], "little"), int.from_bytes(blob[8:10], "little")
+    pos, frames = 13 + 3 * 2 ** ((blob[10] & 7) + 1), []
+    while blob[pos] != 0x3B:
+        image = blob[pos] == 0x2C
+        assert image or blob[pos] == 0x21, f"GIF block 0x{blob[pos]:02x}"
+        mcs = blob[pos + 10] if image else None
+        pos += 11 if image else 2       # image descriptor + code size; extension label
+        data = bytearray()
+        while blob[pos]:                # data sub-blocks
+            data += blob[pos + 1:pos + 1 + blob[pos]]
+            pos += 1 + blob[pos]
+        pos += 1
+        if image:
+            frames.append(_lzw_decode(bytes(data), mcs))
+            assert len(frames[-1]) == w * h, "a GIF frame of the wrong size"
+    return frames
+
+
+def run_tools(capture: bytes) -> dict:
+    """The tools of pi_sph_fluid_tpu_torch/tools/ through their main(), at
+    full width with cut lengths, the launch counters set to 0 just before
+    and read just after: render_probe on the 1M pool at 64x128, dd_probe on
+    the 100k pool, dynamic_stale_probe on the 100k dam in both backends,
+    cfl_probe on the 100k pool, and frames_to_gif on the runner phase's own
+    capture, its GIF decoded frame by frame against the capture.  Any
+    overflow, stale count, lost particle or assertion fails the phase."""
+    out = {}
+    _reset_counts()
+    dev = ["--device", DEV.type]
+    rp = render_probe.main(["--n", str(N_BIG), "--rows", "64", "--cols", "128", *dev])
+    assert rp["step_overflow"] == rp["reuse_overflow"] == rp["self_overflow"] == 0, rp
+    out.update(render_1m_reuse_ms=rp["render_from_frame_ms"],
+               render_1m_self_ms=rp["self_relayout_ms"])
+    ddp = dd_probe.main(["--n", str(N_POOL), *dev])
+    for k in dd_probe.RESORTS:
+        row = ddp[f"r{k}"]
+        assert row["overflow"] == 0 and row["n_valid"] == ddp["n"], (k, row)
+        out[f"dd_probe_r{k}_ms"] = row["ms_per_step"]
+    for backend in ("window", "window-dd"):
+        dsp = dynamic_stale_probe.main(["--n", str(N_POOL), "--backend", backend,
+                                        *TOOLS_STALE_ARGS, *dev])
+        assert dsp["preroll"]["overflow"] == 0, dsp["preroll"]
+        for k in TOOLS_STALE_RESORTS:
+            row = dsp[f"r{k}"]
+            assert row["stale"] == 0 and row["overflow"] == 0, (backend, k, row)
+            assert row.get("n_valid", dsp["n"]) == dsp["n"], (backend, k, row)
+            out[f"stale_{backend}_r{k}_ms"] = row["ms_per_step"]
+    cfl = cfl_probe.main(["--n", str(N_POOL), *TOOLS_CFL_ARGS, *dev])
+    for f, res in cfl["factors"].items():
+        assert res["rows"] and res["overflow"] == 0 and res["stale"] == 0, (f, res)
+        assert res["peak"] < cfl_probe.SPEED_BOUND, (f, res)
+        out[f"cfl_{f}_peak_speed"] = res["peak"]
+        out[f"cfl_{f}_recoveries"] = res["recoveries"]
+    raw = np.frombuffer(capture, np.uint8).reshape(-1, 1024)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, gif = pathlib.Path(tmp) / "frames.bin", pathlib.Path(tmp) / "run.gif"
+        src.write_bytes(capture)
+        conv = frames_to_gif.main([str(src), str(gif), "--scale", "1", *dev])
+        frames = _gif_frames(gif.read_bytes())
+    assert conv["frames_in"] == conv["frames_out"] == len(frames) == len(raw), \
+        (conv, len(frames), len(raw))
+    for fb, px in zip(raw, frames):
+        assert np.array_equal(np.asarray(px, np.uint8).reshape(64, 128),
+                              T.unpack_framebuffer(fb)), "a GIF frame differs"
+    out["gif_frames"] = len(frames)
+    out["launches"] = _counts()
+    assert all(out["launches"][k] > 0 for k in SIM_KERNELS), out["launches"]
+    return out
+
+
+def _divergence_run(eng, sim, k: int, ulp: bool, ref: dict | None, cert) -> dict:
+    """DIV_TICKS ticks at resort_every k from ``sim`` (every fluid x one ulp
+    up first when ``ulp``), in groups of DIV_GROUP ticks.  Every DIV_EVERY
+    ticks: the state by id (kept when ``ref`` is None, the r1 run) or its
+    max |dx, dy|, max |du, dv| and max relative d rho against ``ref``; the
+    summed stale count and the largest overflow so far.  ``cert(fluid)`` runs
+    at the end of every group when k is 64."""
+    if ulp:
+        pk = sim.packed.clone()
+        live = pk[:, 4] > 0
+        pk[live, 0] = torch.nextafter(pk[live, 0], torch.tensor(math.inf, device=DEV))
+        sim = sim._replace(packed=pk)
+    multi = eng.make_multi_step(resort_every=k)
+    rows, stale, overflow = {}, 0, 0
+    for tick in range(DIV_GROUP, DIV_TICKS + 1, DIV_GROUP):
+        sim, st = multi(sim, _gravity(DIV_GROUP))
+        stale += 0 if st.stale is None else int(st.stale.sum())
+        overflow = max(overflow, int(st.neighbor_overflow.max()))
+        if k == 64:
+            cert(eng.unpad(sim))
+        if tick % DIV_EVERY:
+            continue
+        fl = eng.unpad(sim)
+        if ref is None:
+            rows[tick] = fl
+            continue
+        a = ref[tick]
+        rows[tick] = dict(
+            pos=float(torch.maximum((fl.x - a.x).abs(), (fl.y - a.y).abs()).max()),
+            vel=float(torch.maximum((fl.u - a.u).abs(), (fl.v - a.v).abs()).max()),
+            rho=float(((fl.rho - a.rho).abs() / a.rho).max()),
+            stale=stale, overflow=overflow)
+    return dict(rows=rows, stale=stale, overflow=overflow)
+
+
+def _divergence(scene: str, eng, sim, b, bg) -> dict:
+    """The four runs of one scene from ``sim``, the per-DIV_EVERY table
+    printed, and the worst stalest-tick density against the jnp oracle."""
+    cfg, worst = eng.cfg, [0.0]
+
+    def cert(fl):
+        ids = torch.arange(fl.x.shape[0], dtype=torch.int32, device=DEV)
+        assert int(simulation._sort_and_neighbors(fl, ids, bg, cfg)[4]) == 0, \
+            f"{scene}: the oracle's candidate windows overflow"
+        ref = simulation.prime(fl, b, bg, G, cfg)
+        rho = ref.fluid.rho[torch.argsort(ref.ids.long())]
+        worst[0] = max(worst[0], float(((fl.rho - rho).abs() / rho).max()))
+
+    exact = _divergence_run(eng, sim, 1, False, None, cert)
+    runs = {name: _divergence_run(eng, sim, k, ulp, exact["rows"], cert)
+            for name, (k, ulp) in DIV_RUNS.items()}
+    for tick in range(DIV_EVERY, DIV_TICKS + 1, DIV_EVERY):
+        print(f"[divergence] {scene} t={tick} " + " | ".join(
+            f"{name}: pos {r['rows'][tick]['pos']:.3g} vel {r['rows'][tick]['vel']:.3g} "
+            f"rho {r['rows'][tick]['rho']:.3g} stale {r['rows'][tick]['stale']}"
+            for name, r in runs.items()), flush=True)
+    last = {name: r["rows"][DIV_TICKS] for name, r in runs.items()}
+    out = {"stale": {"r1": exact["stale"], **{n: r["stale"] for n, r in runs.items()}},
+           "overflow": {"r1": exact["overflow"],
+                        **{n: r["overflow"] for n, r in runs.items()}},
+           f"t{DIV_TICKS}": last, "stalest_rho_rel": worst[0]}
+    print(f"[divergence] {scene} stalest-tick rho against the oracle: "
+          f"{worst[0]:.3g} (gate {CERT_RHO_REL:g}); stale {out['stale']}, "
+          f"overflow {out['overflow']}", flush=True)
+    assert worst[0] <= CERT_RHO_REL, f"{scene}: stalest-tick rho rel {worst[0]}"
+    return out
+
+
+def run_divergence() -> dict:
+    """How far the sticky layout takes the trajectory, on the card: from one
+    state, DIV_TICKS ticks at r1, r8, r64 and at r1 from every fluid x moved
+    one ulp up (the chaos control), compared by id every DIV_EVERY ticks,
+    and at the end of every r64 group (the stalest tick) the state's density
+    against models/simulation.prime on the same fluid.  Scenes: the 100k
+    pool primed (at the live run's cap; it must show no stale tick and no
+    overflow in any run) and the 100k dam after dynamic_stale_probe's
+    settle and pre-roll at its defaults."""
+    _reset_counts()
+    eng, fluid = pool_engine(N_POOL, DEV, cap=LIVE_CAP)
+    b, bg = T.prepare_boundary(T.build_pool_scene(eng.cfg, DEV)[1], eng.cfg)
+    out = {"pool": _divergence("pool", eng, eng.prime(fluid, G), b, bg)}
+    for what in ("stale", "overflow"):
+        assert not any(out["pool"][what].values()), out["pool"][what]
+    args = dynamic_stale_probe.parse_args(["--n", str(N_POOL), "--device", DEV.type])
+    _, _, eng, sim, multi_of = dynamic_stale_probe.build(args, DEV)
+    sim, _ = dynamic_stale_probe.surge(sim, multi_of, args.settle,
+                                       dynamic_stale_probe.preroll_ticks(args, eng.cfg))
+    b, bg = T.prepare_boundary(T.build_dam_break_scene(eng.cfg, DEV)[1], eng.cfg)
+    out["dam"] = _divergence("dam", eng, sim, b, bg)
+    out["launches"] = _counts()
+    return out
 
 
 def _case(fn, plain, name: str, cost: dict, err: float) -> dict:

@@ -8,9 +8,11 @@ models.engine_v3.WindowEngine, with its density and forces window kernels
 field kernel (render/); and the live-simulation path around them, the
 SimRunner host loop, its gravity sources and display sinks (io/) and the
 ``run``/``bench`` CLI (cli.py); the jnp-oracle stepper (models/simulation.py,
-``backend="reference"``); the headline bench (bench.py); and the two TPU
-probes redone for the card (tools/).  This package imports torch and numpy
-and never JAX.
+``backend="reference"``); the headline bench (bench.py); slab domain
+decomposition (parallel/); and the tools of ``tools/`` (tools/): the two
+TPU probes redone for the card and the five that ask a question of the
+physics or of the card.  This package imports torch and numpy and never
+JAX.
 """
 
 from .config import DEFAULT_CONFIG, SPHConfig

@@ -61,7 +61,7 @@ from .models.engine_v3 import WindowEngine
 from .models.scene import build_drop_scene, build_pool_scene
 from .parallel import LocalComm, WindowDomain
 from .render.metaballs_window import WindowRenderer
-from .utils.profiling import pool_engine
+from .utils.profiling import pool_engine, resolve_device
 
 __all__ = ["main", "bench_window", "bench_small", "bench_1m", "bench_dd"]
 
@@ -204,18 +204,6 @@ def bench_dd(per_slab_n: int, steps: int, device: torch.device) -> dict:
     }
 
 
-def _device(name: str) -> tuple[torch.device, str]:
-    device = torch.device(name)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("bench: no CUDA device (torch.cuda.is_available() is "
-                             "False); pass --device cpu to run the plain versions")
-        return device, torch.cuda.get_device_name(device)
-    if device.type != "cpu":
-        raise SystemExit(f"bench: unsupported device {name!r}")
-    return device, "cpu"
-
-
 def main(argv=None) -> dict:
     """Prints the JSON line and returns it as a dict."""
     ap = argparse.ArgumentParser(prog="pi_sph_fluid_tpu_torch.bench")
@@ -233,7 +221,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.steps % RESORT or args.small_steps % 4:
         raise SystemExit("--steps must be a multiple of 64 and --small-steps of 4")
-    device, kind = _device(args.device)
+    device, kind = resolve_device(args.device, "bench")
     result = bench_window(args.n, args.steps, device)
     result.update(bench_small(args.small_steps, device))
     result["m1"] = bench_1m(args.m1_n, M1_STEPS, device)

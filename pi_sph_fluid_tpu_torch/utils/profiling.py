@@ -9,7 +9,12 @@
   the same ``sim``, with the device synchronised around each one;
 * ``device_breakdown(fn)``: one call of ``fn`` under ``torch.profiler``:
   wall time, device time per CUDA kernel, and host synchronisations;
+* ``resolve_device(name, prog)``: a command's ``--device`` as (device,
+  its name), raising without a card unless the CPU was asked for;
 * ``event_ms(fn, reps)``: mean ms of ``fn()`` by CUDA events;
+  ``wall_ms(fn, reps, device)``: mean ms of ``fn()`` by the host clock
+  between two synchronisations (any device), and ``timed(fn, device)``
+  one call's result and seconds so;
   ``host_us(fn, reps)``: mean host microseconds of ``fn()`` with the device
   left to run behind (what a kernel wrapper costs the host per launch);
   ``kernel_device_ms(fn, name, device)``: the profiler's device ms per
@@ -55,7 +60,8 @@ from ..ops.grid import cell_ids, csr_starts
 from ..ops.window.triple import block_spans, build_frame, start_grid
 from ..render.metaballs_window import WindowRenderer
 
-__all__ = ["pool_engine", "throughput", "device_breakdown", "event_ms",
+__all__ = ["pool_engine", "resolve_device", "throughput", "device_breakdown",
+           "event_ms", "wall_ms", "timed",
            "host_us", "kernel_device_ms", "call_device_ms", "covered", "bound",
            "trace", "device_memory", "PEAK_BYTES", "PEAK_FLOPS"]
 
@@ -73,6 +79,21 @@ def pool_engine(n_target: int, device, **engine_kw):
     fluid, braw = build_pool_scene(cfg, device)
     b, bg = prepare_boundary(braw, cfg)
     return WindowEngine(cfg, b, bg, fluid.n, device, **engine_kw), fluid
+
+
+def resolve_device(name: str, prog: str) -> tuple[torch.device, str]:
+    """(torch device, its name) of a command's ``--device``: ``cuda[:N]``
+    raises SystemExit without a card (there is no CPU fallback) and ``cpu``
+    runs the kernels' plain versions."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(f"{prog}: no CUDA device (torch.cuda.is_available() is "
+                             "False); pass --device cpu to run the plain versions")
+        return device, torch.cuda.get_device_name(device)
+    if device.type != "cpu":
+        raise SystemExit(f"{prog}: unsupported device {name!r}")
+    return device, "cpu"
 
 
 def _sync(device) -> None:
@@ -139,6 +160,29 @@ def event_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps: int, device) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` back-to-back calls after
+    one untimed warm-up (the first call on a card builds the kernels), by
+    the host clock between two synchronisations of ``device``."""
+    fn()
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync(device)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def timed(fn, device) -> tuple:
+    """(``fn()``, its seconds by the host clock between two synchronisations
+    of ``device``)."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
 
 
 def host_us(fn, reps: int = 200) -> float:

@@ -145,7 +145,8 @@ def test_convert_roundtrip():
 def test_port_imports_no_jax_and_cpu_path_launches_nothing():
     """In a fresh interpreter the port (the renderer, the host loop, the
     CLI, the bench, the probes, the jnp oracle, the slab decomposition, its
-    launch plumbing and worker, and the dry runs included) leaves JAX out
+    launch plumbing and worker, the dry runs and the tools of physics and
+    card included) leaves JAX out
     of sys.modules, and a primed CPU run, a render,
     a 2-slab step, a 2-slab sticky group and its frame, a window-dd runner
     and both probes go through the plain versions only (counters at 0)."""
@@ -163,6 +164,8 @@ def test_port_imports_no_jax_and_cpu_path_launches_nothing():
         "from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp\n"
         "from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up\n"
         "from pi_sph_fluid_tpu_torch.tools import launch_probe\n"
+        "from pi_sph_fluid_tpu_torch.tools import (cfl_probe, dd_probe, dynamic_stale_probe,\n"
+        "                                          frames_to_gif, render_probe)\n"
         "from pi_sph_fluid_tpu_torch.utils import profiling, stats\n"
         "cfg = T.SPHConfig()\n"
         "f, b = T.build_drop_scene(cfg, 'cpu')\n"

@@ -424,3 +424,29 @@ def test_two_nccl_ranks_on_one_card_fail_loudly(tmp_path):
 
     outs = comm_script(tmp_path, "cuda", backend="nccl", ok=False)
     assert any("NCCL" in err or "nccl" in err for _, err in outs), outs[0][1][-4000:]
+
+
+@pytest.mark.cuda
+def test_tools_launch_the_kernels_on_the_card():
+    """render_probe and dd_probe through their main() on the card at a
+    small size launch the kernels for every tick and frame they run (no
+    plain fallback): render_probe primes (one density and one forces
+    launch), runs one group of 4 ticks and draws 2 x (2 + reps) frames;
+    dd_probe runs one slab for one group and 8 ticks at each period."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from pi_sph_fluid_tpu_torch.tools import dd_probe, render_probe
+
+    before = (wk.density_window.launches, wk.forces_window.launches,
+              mw.field_window.launches)
+    out = render_probe.main(["--n", "20000", "--reps", "2"])
+    after = (wk.density_window.launches, wk.forces_window.launches,
+             mw.field_window.launches)
+    assert out["device"] == torch.cuda.get_device_name(0)
+    assert out["reuse_overflow"] == 0 and out["self_overflow"] == 0
+    assert tuple(a - b for a, b in zip(after, before)) == (5, 5, 8), (before, after)
+    out = dd_probe.main(["--n", "20000", "--steps", "8"])
+    ticks = sum(k + 8 for k in dd_probe.RESORTS)
+    assert (wk.density_window.launches - after[0],
+            wk.forces_window.launches - after[1]) == (ticks, ticks)
+    assert all(out[f"r{k}"]["n_valid"] == out["n"] for k in dd_probe.RESORTS)
