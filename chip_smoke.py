@@ -164,6 +164,7 @@ from pi_sph_fluid_tpu_torch.utils.profiling import (bound, call_device_ms,  # no
                                                     covered, device_breakdown,
                                                     device_memory, event_ms,
                                                     kernel_device_ms, pool_engine)
+from pi_sph_fluid_tpu_torch.utils.tracer import tracer  # noqa: E402
 
 G = (0.0, -9.81)
 DEV = torch.device("cuda")
@@ -235,6 +236,12 @@ KERNELS = {
     "span_density": (sp.span_density, "tools/span_dma_probe.py:38", PROBE_SRC),
 }
 SIM_KERNELS = ("density_window", "forces_window", "field_window")
+# each wrapper's launch counter in utils/tracer.py's counters
+COUNTER = {"density_window": "kernel.density.launches",
+           "forces_window": "kernel.forces.launches",
+           "field_window": "kernel.field.launches",
+           "window_copy": "probe.window_copy.launches",
+           "span_density": "probe.span_density.launches"}
 # float32 operations per pair lane (sqrt, max and select counted as one;
 # far_flops where the kernel needs only dx, dy, r^2 and the compare of a lane
 # out of the query's reach, whose term is 0),
@@ -262,12 +269,12 @@ def _sync() -> None:
 
 
 def _reset_counts() -> None:
-    for wrapper, *_ in KERNELS.values():
-        wrapper.launches = 0
+    for key in COUNTER.values():
+        tracer.counters.pop(key, None)
 
 
 def _counts() -> dict:
-    return {name: k[0].launches for name, k in KERNELS.items()}
+    return {name: tracer.counters.get(COUNTER[name], 0) for name in KERNELS}
 
 
 def _gravity(n: int) -> np.ndarray:
@@ -1316,7 +1323,7 @@ def run_golden_render() -> dict:
         b, bg = T.prepare_boundary(braw, cfg)
         eng = T.WindowEngine(cfg, b, bg, g["states"].shape[1], DEV)
         rend = mw.WindowRenderer(eng)
-        before = mw.field_window.launches
+        before = tracer.counters.get("kernel.field.launches", 0)
         for dump in dumps:
             fl = T.FluidState(*(torch.tensor(g["states"][dump][:, j], device=DEV)
                                 for j in range(7)))
@@ -1329,7 +1336,7 @@ def run_golden_render() -> dict:
                            == T.unpack_framebuffer(g["framebuffers"][dump])).mean())
             assert agree >= 0.995, f"{golden} dump {dump}: agreement {agree}"
             out[f"{g['states'].shape[1]}@{int(g['steps'][dump])}"] = agree
-        assert mw.field_window.launches == before + len(dumps)
+        assert tracer.counters.get("kernel.field.launches", 0) == before + len(dumps)
     return out
 
 

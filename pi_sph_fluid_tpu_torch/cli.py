@@ -19,6 +19,7 @@ the display and the printed lines.
         --process-id 0 --coordinator 127.0.0.1:29500 --dist-backend gloo --scene dam
     python -m pi_sph_fluid_tpu_torch.cli bench --n 1000000 --steps 64 --render
     python -m pi_sph_fluid_tpu_torch.cli run --backend reference --scene drop --display file:/tmp/f.bin
+    python -m pi_sph_fluid_tpu_torch.cli run --scene drop --trace-out /tmp/spans.json
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import sys
 
 from .config import SPHConfig
 from .models.scene import build_dam_break_scene, build_drop_scene, build_pool_scene
+from .utils.tracer import tracer
 
 
 def _make_scene(args):
@@ -170,6 +172,8 @@ def cmd_run(args):
         print(f"n_fluid = {fluid.n}")
         print(f"n_boundary = {braw.n}")
     render_shape = _parse_render_shape(args.render_shape)
+    if args.trace_out:
+        tracer.enable()
     runner = SimRunner(cfg, fluid, braw, backend=args.backend,
                        engine_opts=_engine_opts(args),
                        render=render,
@@ -206,6 +210,10 @@ def cmd_run(args):
             resume=resume)
     finally:
         sink.close()
+        if args.trace_out and io_owner:
+            tracer.to_chrome(args.trace_out)
+            print(f"{len(tracer.spans)} spans written to {args.trace_out}",
+                  file=sys.stderr)
     if args.save_state and runner.domain is not None:
         # a collective: every process gathers, process 0 writes
         fl = runner.domain.gather(result.sim)
@@ -377,6 +385,10 @@ def main(argv=None):
                          "the raw layout arrays)")
     rp.add_argument("--load-state", default=None, metavar="F.npz",
                     help="start from a checkpoint written by either package")
+    rp.add_argument("--trace-out", default=None, metavar="F.json",
+                    help="record the run's spans (utils/tracer.py) and write "
+                         "them as one Chrome trace-event file at the end "
+                         "(process 0 of a multi-process run)")
     rp.set_defaults(fn=cmd_run)
 
     bp = sub.add_parser("bench", help="headless throughput benchmark")

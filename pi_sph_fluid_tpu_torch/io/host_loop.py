@@ -37,6 +37,7 @@ from ..parallel.launch import is_multiprocess
 from ..render.metaballs import make_renderer
 from ..render.metaballs_window import WindowRenderer
 from ..utils.stats import StatsReporter
+from ..utils.tracer import tracer
 
 __all__ = ["SimRunner", "RunResult"]
 
@@ -64,6 +65,15 @@ def _reduce(st):
         neighbor_overflow=_saturating_sum(st.neighbor_overflow),
         overflow_by=by,
         stale=None if st.stale is None else _saturating_sum(st.stale))
+
+
+def _show(sink, frame, seq: int):
+    """Hand dispatch ``seq``'s frame to the sink.  The copy to the host is
+    stream-ordered: it waits for every launch queued before it."""
+    with tracer.span("runner.frame_fetch", dispatch=seq):
+        fb = frame.cpu().numpy()
+    with tracer.span("runner.sink", dispatch=seq):
+        sink.push(fb)
 
 
 @dataclass
@@ -156,13 +166,15 @@ class SimRunner:
         engine unchanged."""
         if cap is not None:
             self._engine_opts["cap"] = cap
-        self.engine = WindowEngine(self.cfg, self.boundary, self._bgrid,
-                                   self.n_fluid, self.device, **self._engine_opts)
-        self._multi = self.engine.make_multi_step(resort_every=self._resort,
-                                                  return_frame=self._render)
-        self._settle_multi = self.engine.make_multi_step(damping=0.995)
-        self._renderer = (WindowRenderer(self.engine, *self._render_shape)
-                          .render_from_frame if self._render else None)
+        with tracer.span("runner.build", cap=self._engine_opts.get("cap"),
+                         resort=self._resort):
+            self.engine = WindowEngine(self.cfg, self.boundary, self._bgrid,
+                                       self.n_fluid, self.device, **self._engine_opts)
+            self._multi = self.engine.make_multi_step(resort_every=self._resort,
+                                                      return_frame=self._render)
+            self._settle_multi = self.engine.make_multi_step(damping=0.995)
+            self._renderer = (WindowRenderer(self.engine, *self._render_shape)
+                              .render_from_frame if self._render else None)
 
     def _dd_growth(self, cats: set) -> dict:
         """The capacity growth for the starved categories (names of
@@ -207,16 +219,17 @@ class SimRunner:
         opts = dict(self._engine_opts)
         slabs = opts.pop("slabs", None) or 1
         self.engine = None
-        comm = DistComm(slabs) if is_multiprocess() else LocalComm(slabs)
-        self.domain = WindowDomain(self.cfg, self.boundary, self._bgrid,
-                                   self.n_fluid, comm, self.device, **opts)
-        self._multi = self._wrap_dd(self.domain.make_multi_step(
-            resort_every=self._resort))
-        self._settle_multi = self._wrap_dd(self.domain.make_multi_step(damping=0.995))
-        self._renderer = None
-        if self._render:
-            render = self.domain.make_render(*self._render_shape)
-            self._renderer = lambda sim, frame: render(sim)
+        with tracer.span("runner.build", cap=opts.get("cap"), resort=self._resort):
+            comm = DistComm(slabs) if is_multiprocess() else LocalComm(slabs)
+            self.domain = WindowDomain(self.cfg, self.boundary, self._bgrid,
+                                       self.n_fluid, comm, self.device, **opts)
+            self._multi = self._wrap_dd(self.domain.make_multi_step(
+                resort_every=self._resort))
+            self._settle_multi = self._wrap_dd(self.domain.make_multi_step(damping=0.995))
+            self._renderer = None
+            if self._render:
+                render = self.domain.make_render(*self._render_shape)
+                self._renderer = lambda sim, frame: render(sim)
 
     def _wrap_dd(self, dmulti):
         """A WindowDomain multi-step with its stats dict as StepStats
@@ -251,14 +264,16 @@ class SimRunner:
         (overflow 0)."""
         self.engine = None
         cfg, b, bg = self.cfg, self.boundary, self._bgrid
-        self._multi = make_multi_step(cfg, b, bg)
-        self._settle_multi = make_multi_step(cfg, b, bg, damping=0.995)
-        self._renderer = None
-        if self._render:
-            render = make_renderer(cfg, *self._render_shape)
-            zero = torch.zeros((), dtype=torch.int32, device=self.device)
-            self._renderer = lambda sim, frame: (render(sim.fluid), zero)
+        with tracer.span("runner.build", cap=None, resort=self._resort):
+            self._multi = make_multi_step(cfg, b, bg)
+            self._settle_multi = make_multi_step(cfg, b, bg, damping=0.995)
+            self._renderer = None
+            if self._render:
+                render = make_renderer(cfg, *self._render_shape)
+                zero = torch.zeros((), dtype=torch.int32, device=self.device)
+                self._renderer = lambda sim, frame: (render(sim.fluid), zero)
 
+    @tracer.traced("runner.prime")
     def _prime(self, g):
         if self.domain is not None:
             return self.domain.init(self._fluid_init)
@@ -269,20 +284,23 @@ class SimRunner:
     def _dispatch(self, sim, g_trace):
         """K ticks, then (with a renderer) one frame from the engine's last
         relayout (the oracle and the slab decomposition render the state
-        itself); stats reduced on the device, render overflow folded in."""
-        if self._renderer is None:
-            sim, st = self._multi(sim, g_trace)
-            return sim, _reduce(st), None
-        if self.engine is None:
-            (sim, st), frame = self._multi(sim, g_trace), None
-        else:
-            sim, st, frame = self._multi(sim, g_trace)
-        fb, render_overflow = self._renderer(sim, frame)
-        st = _reduce(st)
-        st = st._replace(neighbor_overflow=st.neighbor_overflow + render_overflow)
-        return sim, st, fb
+        itself); stats reduced on the device, render overflow folded in.
+        One span, under a new dispatch number."""
+        with tracer.span("runner.dispatch", dispatch=tracer.next_dispatch()):
+            if self._renderer is None:
+                sim, st = self._multi(sim, g_trace)
+                return sim, _reduce(st), None
+            if self.engine is None:
+                (sim, st), frame = self._multi(sim, g_trace), None
+            else:
+                sim, st, frame = self._multi(sim, g_trace)
+            fb, render_overflow = self._renderer(sim, frame)
+            st = _reduce(st)
+            st = st._replace(neighbor_overflow=st.neighbor_overflow + render_overflow)
+            return sim, st, fb
 
     # ------------------------------------------------------------------
+    @tracer.traced("runner.run")
     def run(
         self,
         gravity_source,
@@ -319,15 +337,17 @@ class SimRunner:
             """Prime (+ damped settle); returns (sim, settle overflow), the
             overflow drained once at the end, not per chunk."""
             sim = resume if resume is not None else self._prime(g_init)
-            pending = []
-            if settle_seconds > 0.0:
+            if settle_seconds <= 0.0:
+                return sim, 0
+            with tracer.span("runner.settle"):
                 # damped pre-roll in k-tick chunks, rounded up
                 n_settle = int(round(settle_seconds / dt))
                 g0 = np.tile(np.asarray(g_init, np.float32), (k, 1))
+                pending = []
                 for _ in range(-(-n_settle // k)):
                     sim, st = self._settle_multi(sim, g0)
                     pending.append(st.neighbor_overflow.sum(dtype=torch.int64))
-            ov = int(torch.stack(pending).sum().item()) if pending else 0
+                ov = int(torch.stack(pending).sum().item()) if pending else 0
             return sim, ov
 
         use_ac = self.auto_cap
@@ -392,7 +412,7 @@ class SimRunner:
         sim_t = 0.0
         # displayed one dispatch late: frame i-1 is fetched after dispatch i
         # is queued (the reference's tearing-tolerant display contract)
-        pending_frame = None
+        pending_frame, pending_seq = None, -1
 
         def revert():
             nonlocal sim, i, sim_t, replay_pos, pending_frame, recoveries
@@ -420,8 +440,8 @@ class SimRunner:
             dispatches += 1
             if frame is not None and sink is not None:
                 if pending_frame is not None:
-                    sink.push(pending_frame.cpu().numpy())
-                pending_frame = frame
+                    _show(sink, pending_frame, pending_seq)
+                pending_frame, pending_seq = frame, tracer.last_dispatch
             line = reporter.update(k, st)
             sim_t += k * dt
             i += 1
@@ -441,18 +461,19 @@ class SimRunner:
                         say(f"OVERFLOW in {sorted(cats)} with every starved "
                             f"capacity at its ceiling: continuing with losses")
                         continue
-                    say(f"OVERFLOW in {sorted(cats)}: growing {growing(grow)}, "
-                        f"reverting to t={ck_t:.2f}s and replaying")
-                    if ck_is_start:
-                        self._build_dd(grow)
-                        ck_sim = start_recovered()
-                    else:
-                        # the slab arrays change shape with the capacities:
-                        # the checkpoint goes through the lossless export
-                        ck_export = self.domain.export(ck_sim)
-                        self._build_dd(grow)
-                        ck_sim = self.domain.init(*ck_export)
-                    revert()
+                    with tracer.span("runner.recover", cause="dd_growth"):
+                        say(f"OVERFLOW in {sorted(cats)}: growing {growing(grow)}, "
+                            f"reverting to t={ck_t:.2f}s and replaying")
+                        if ck_is_start:
+                            self._build_dd(grow)
+                            ck_sim = start_recovered()
+                        else:
+                            # the slab arrays change shape with the capacities:
+                            # the checkpoint goes through the lossless export
+                            ck_export = self.domain.export(ck_sim)
+                            self._build_dd(grow)
+                            ck_sim = self.domain.init(*ck_export)
+                        revert()
                     continue
                 if reporter.total_overflow > 0:
                     old_cap = self.engine.spec.cap
@@ -462,12 +483,13 @@ class SimRunner:
                         say(f"WINDOW OVERFLOW at cap={old_cap} (max-cap "
                             f"reached): continuing with lost pairs")
                         continue
-                    say(f"WINDOW OVERFLOW: cap {old_cap} -> {new_cap}, "
-                        f"reverting to t={ck_t:.2f}s and replaying")
-                    self._build(cap=new_cap)
-                    if ck_is_start:
-                        ck_sim = start_recovered()
-                    revert()
+                    with tracer.span("runner.recover", cause="cap_growth"):
+                        say(f"WINDOW OVERFLOW: cap {old_cap} -> {new_cap}, "
+                            f"reverting to t={ck_t:.2f}s and replaying")
+                        self._build(cap=new_cap)
+                        if ck_is_start:
+                            ck_sim = start_recovered()
+                        revert()
                     continue
                 if reporter.total_stale > 0 and self._resort > 1:
                     # stale downgrade: drift passed the 0.3*H margin inside a
@@ -475,17 +497,18 @@ class SimRunner:
                     # resort_every, revert, replay (ends at 1: exact mode has
                     # no carried ticks)
                     new_resort = self._resort // 2
-                    say(f"STALE DRIFT: {reporter.total_stale} particle-ticks "
-                        f"past the fringe margin; resort_every {self._resort} "
-                        f"-> {new_resort}, reverting to t={ck_t:.2f}s and "
-                        f"replaying")
-                    self._resort = new_resort
-                    # a period that tripped is never re-entered by the ladder
-                    self._resort_ceiling = min(self._resort_ceiling, new_resort)
-                    self._rebuild()
-                    if ck_is_start:
-                        ck_sim = start_recovered()
-                    revert()
+                    with tracer.span("runner.recover", cause="stale"):
+                        say(f"STALE DRIFT: {reporter.total_stale} particle-ticks "
+                            f"past the fringe margin; resort_every {self._resort} "
+                            f"-> {new_resort}, reverting to t={ck_t:.2f}s and "
+                            f"replaying")
+                        self._resort = new_resort
+                        # a period that tripped is never re-entered by the ladder
+                        self._resort_ceiling = min(self._resort_ceiling, new_resort)
+                        self._rebuild()
+                        if ck_is_start:
+                            ck_sim = start_recovered()
+                        revert()
                     continue
                 if line is not None:
                     ck_sim, ck_i, ck_t = sim, i, sim_t
@@ -515,7 +538,7 @@ class SimRunner:
 
                 pace_until(t_mono0 + sim_t)
         if pending_frame is not None and sink is not None:
-            sink.push(pending_frame.cpu().numpy())
+            _show(sink, pending_frame, pending_seq)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0

@@ -39,6 +39,7 @@ from ..ops.window.triple import (INERT_X, Frame, TripleCtx, TripleSpec,
                                  start_grid, triple_spec)
 from ..ops.window.window_kernels import density_window, forces_window
 from ..state import BoundaryState, FluidState
+from ..utils.tracer import tracer
 from .simulation import StepStats, host_gravity
 
 __all__ = ["WindowEngine", "TripleSpec", "PackedSim"]
@@ -103,6 +104,7 @@ class WindowEngine:
         (`engine_v3.py:130-171`).  Returns (packed_new, ctx, overflow)."""
         return self._relayout_order(packed)[:3]
 
+    @tracer.traced("stepper.relayout")
     def _relayout_order(self, packed: torch.Tensor):
         """``_relayout`` that also returns the sort's ``order``: layout slot
         j holds input row ``order[ctx.layout_src[j]]`` where

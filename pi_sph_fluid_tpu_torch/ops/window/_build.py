@@ -19,6 +19,8 @@ import pathlib
 import shutil
 import subprocess
 
+from ...utils.tracer import tracer
+
 __all__ = ["SOURCES", "build_dir", "library"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
@@ -55,24 +57,27 @@ def _nvcc() -> str:
 @functools.lru_cache(maxsize=None)
 def library(name: str = "window_kernels") -> tuple[ctypes.CDLL, str]:
     """The loaded library ``name`` (a key of SOURCES) and the compiler's log
-    (empty when it was already built).  Compiles on first use."""
+    (empty when it was already built).  Compiles on first use.  The first
+    call is one span ``kernels.load``, whose ``compiled`` says whether nvcc
+    ran."""
     source, signatures = SOURCES[name]
     src = source.read_bytes()
     tag = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     out = build_dir() / f"lib{name}_{tag}.so"
     log = ""
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp), str(source)],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    for fn_name, argtypes in signatures.items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    with tracer.span("kernels.load", library=name, compiled=not out.exists()):
+        if not out.exists():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp), str(source)],
+                                  capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n{log}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        for fn_name, argtypes in signatures.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib, log

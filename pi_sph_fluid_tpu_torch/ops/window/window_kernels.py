@@ -31,7 +31,8 @@ position poisons in both.
 
 Dispatch: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the hand-written kernel (csrc/window_kernels.cu) or raises.  Each
-wrapper's ``launches`` counts kernel launches and nothing else.  The
+wrapper counts its kernel launches, and nothing else, in utils/tracer.py's
+counters (``kernel.density.launches``, ``kernel.forces.launches``).  The
 float32 constants of a pass are computed once per config, and a launch
 spends its host time on the checks, two allocations and the call.
 
@@ -56,6 +57,7 @@ import torch
 
 from ...config import SPHConfig
 from ...core.pair_terms import artificial_pressure_ref_w
+from ...utils.tracer import tracer
 from .triple import TripleSpec
 
 __all__ = ["density_window", "forces_window", "density_window_plain",
@@ -276,11 +278,8 @@ def density_window(q_packed, b_geo_d, spans, cfg: SPHConfig, spec: TripleSpec):
              *_const_args(density_consts, cfg), stream)
     if err:
         raise RuntimeError(f"density_window kernel launch failed: CUDA error {err}")
-    density_window.launches += 1
+    tracer.count("kernel.density.launches")
     return geo8, rp
-
-
-density_window.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +369,5 @@ def forces_window(q_packed, geo8, rp, b_geo_f, spans, g,
              float(g[1]), float(half_dt), float(damp), *_const_args(forces_consts, cfg), stream)
     if err:
         raise RuntimeError(f"forces_window kernel launch failed: CUDA error {err}")
-    forces_window.launches += 1
+    tracer.count("kernel.forces.launches")
     return pk_next, acc
-
-
-forces_window.launches = 0

@@ -29,8 +29,9 @@ frame, never silent.  Up to the cap no lane is cut; past it the kernel
 keeps the first cap fluid lanes in span order.
 
 ``field_window`` launches the CUDA kernel (csrc/window_kernels.cu) on CUDA
-tensors and runs ``field_window_plain`` on CPU tensors; its ``launches``
-counts kernel launches and nothing else.
+tensors and runs ``field_window_plain`` on CPU tensors; it counts its
+kernel launches, and nothing else, as ``kernel.field.launches`` of
+utils/tracer.py's counters.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from ..ops.window.triple import (LANE, Frame, TripleSpec, span_index,
 from ..ops.window.window_kernels import (_check_grid_spans, _chunk,
                                          _grid_spans, _lanes, _launch, _zero,
                                          density_consts)
+from ..utils.tracer import tracer
 from .metaballs import pack_framebuffer, w_ref_of
 
 __all__ = ["WindowRenderer", "pixel_layout", "pixel_window_cap",
@@ -187,11 +189,8 @@ def field_window(q_packed, rows, grid, span_idx, cfg: SPHConfig,
              c["half_inv_h"], c["two_inv_h"], stream)
     if err:
         raise RuntimeError(f"field_window kernel launch failed: CUDA error {err}")
-    field_window.launches += 1
+    tracer.count("kernel.field.launches")
     return out
-
-
-field_window.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +280,7 @@ class WindowRenderer:
         field, overflow = self.field(sim)
         return self._pack(field), overflow
 
+    @tracer.traced("render.frame")
     def render_from_frame(self, sim, frame):
         """render() over the engine's frame (see field_from_frame)."""
         field, overflow = self.field_from_frame(sim, frame)

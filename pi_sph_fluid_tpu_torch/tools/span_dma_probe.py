@@ -36,6 +36,7 @@ import torch
 
 from ..ops.window.window_kernels import _launch
 from ..utils.profiling import bound, covered, event_ms, host_us
+from ..utils.tracer import tracer
 
 __all__ = ["span_density", "span_density_plain", "span_cost", "make_inputs",
            "run_variant", "main", "VARIANTS"]
@@ -127,11 +128,8 @@ def span_density(q, src, w_s, spans: int, span_cap: int, tq: int = 256,
              n_tiles * nqb, qb, spans, span_cap, src.shape[1], stream)
     if err:
         raise RuntimeError(f"span_density kernel launch failed: CUDA error {err}")
-    span_density.launches += 1
+    tracer.count("probe.span_density.launches")
     return out
-
-
-span_density.launches = 0
 
 
 def span_cost(q, src, w_s, spans: int, span_cap: int, tq: int = 256,

@@ -31,6 +31,7 @@ import torch
 from ..ops.window.window_kernels import _launch
 from ..utils.profiling import (bound, call_device_ms, covered, event_ms,
                                host_us, kernel_device_ms)
+from ..utils.tracer import tracer
 
 __all__ = ["window_copy", "window_copy_plain", "copy_cost", "make_starts", "main"]
 
@@ -93,11 +94,8 @@ def window_copy(starts: torch.Tensor, src: torch.Tensor, cap: int = CAP,
              k, L, cap, int(aligned), stream)
     if err:
         raise RuntimeError(f"window_copy kernel launch failed: CUDA error {err}")
-    window_copy.launches += 1
+    tracer.count("probe.window_copy.launches")
     return out
-
-
-window_copy.launches = 0
 
 
 def copy_cost(starts: torch.Tensor, src: torch.Tensor, cap: int = CAP) -> dict:

@@ -22,6 +22,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .tracer import tracer
+
 __all__ = ["StatsReporter"]
 
 
@@ -90,11 +92,14 @@ class StatsReporter:
         return self._stale
 
     def _drain(self):
-        """Fold the queued device stats into the host-side aggregates."""
+        """Fold the queued device stats into the host-side aggregates: one
+        span, under the number of the last dispatch queued, since the copy
+        to the host waits for it."""
         if not self._pending:
             return
         has_by = any(st.overflow_by is not None for st in self._pending)
-        rows = torch.stack([_column(st) for st in self._pending]).cpu().tolist()
+        with tracer.span("stats.drain", dispatch=tracer.last_dispatch):
+            rows = torch.stack([_column(st) for st in self._pending]).cpu().tolist()
         self._pending.clear()
         for rho, speed, ov, stale, *by in rows:
             self._window_rho = max(self._window_rho, rho)

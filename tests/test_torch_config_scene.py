@@ -167,6 +167,7 @@ def test_port_imports_no_jax_and_cpu_path_launches_nothing():
         "from pi_sph_fluid_tpu_torch.tools import (cfl_probe, dd_probe, dynamic_stale_probe,\n"
         "                                          frames_to_gif, render_probe)\n"
         "from pi_sph_fluid_tpu_torch.utils import profiling, stats\n"
+        "from pi_sph_fluid_tpu_torch.utils.tracer import tracer\n"
         "cfg = T.SPHConfig()\n"
         "f, b = T.build_drop_scene(cfg, 'cpu')\n"
         "b, g = T.prepare_boundary(b, cfg)\n"
@@ -185,11 +186,10 @@ def test_port_imports_no_jax_and_cpu_path_launches_nothing():
         "src, al, un = up.make_starts(4096, 2)\n"
         "up.window_copy(torch.from_numpy(un), torch.from_numpy(src))\n"
         "sp.span_density(*sp.make_inputs(256, 1024, 4, 128, 'cpu'), 4, 128)\n"
-        "assert wk.density_window.launches == 0, wk.density_window.launches\n"
-        "assert wk.forces_window.launches == 0, wk.forces_window.launches\n"
-        "assert mw.field_window.launches == 0, mw.field_window.launches\n"
-        "assert up.window_copy.launches == 0, up.window_copy.launches\n"
-        "assert sp.span_density.launches == 0, sp.span_density.launches\n"
+        "for key in ('kernel.density.launches', 'kernel.forces.launches',\n"
+        "            'kernel.field.launches', 'probe.window_copy.launches',\n"
+        "            'probe.span_density.launches'):\n"
+        "    assert tracer.counters.get(key, 0) == 0, (key, tracer.counters)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('pi_sph_fluid_tpu.') or m == 'pi_sph_fluid_tpu']\n"
         "assert not bad, bad\n"

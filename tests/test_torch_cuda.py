@@ -17,8 +17,14 @@ from pi_sph_fluid_tpu_torch.render import metaballs_window as mw
 from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp
 from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up
 from pi_sph_fluid_tpu_torch.utils.profiling import pool_engine
+from pi_sph_fluid_tpu_torch.utils.tracer import tracer
 
 G = (0.0, -9.81)
+
+
+def _launches(*kernels) -> tuple:
+    """The launch counters (utils/tracer.py) of the named window kernels."""
+    return tuple(tracer.counters.get(f"kernel.{k}.launches", 0) for k in kernels)
 
 
 @pytest.fixture(params=[(256, 1.0), (1024, 0.6), (96, 1.0)],
@@ -50,11 +56,11 @@ def test_density_kernel_matches_plain(pool_frame):
     copied geo8 columns bitwise."""
     eng, pk, ctx = pool_frame
     args = (pk, eng._b_geo_d, ctx.spans, eng.cfg, eng.spec)
-    before = wk.density_window.launches
+    before = tracer.counters.get("kernel.density.launches", 0)
     g8k, rpk = wk.density_window(*args)
     g8p, rpp = wk.density_window_plain(*args)
     torch.cuda.synchronize()
-    assert wk.density_window.launches == before + 1
+    assert tracer.counters.get("kernel.density.launches", 0) == before + 1
     torch.testing.assert_close(rpk[:, 0], rpp[:, 0], rtol=1e-6, atol=0)
     assert torch.equal(g8k[:, [0, 1, 2, 3, 4, 7]], g8p[:, [0, 1, 2, 3, 4, 7]])
 
@@ -182,11 +188,11 @@ def _pool_frame_for_render():
 
 
 def _assert_field_close(rend, args):
-    before = mw.field_window.launches
+    before = tracer.counters.get("kernel.field.launches", 0)
     fk = mw.field_window(*args)
     fp = mw.field_window_plain(*args)
     torch.cuda.synchronize()
-    assert mw.field_window.launches == before + 1
+    assert tracer.counters.get("kernel.field.launches", 0) == before + 1
     fk, fp = fk * rend.field_scale, fp * rend.field_scale
     torch.testing.assert_close(fk, fp, rtol=1e-5, atol=5e-5)
     confident = (fp - 1.0).abs() > 1e-3
@@ -265,11 +271,11 @@ def test_window_copy_kernel_matches_plain(form):
         src, al, un = up.make_starts(L, n_tiles, seed=1)
         starts = torch.from_numpy(al if form == "aligned" else un).cuda()
         src = torch.from_numpy(src).cuda()
-        before = up.window_copy.launches
+        before = tracer.counters.get("probe.window_copy.launches", 0)
         got = up.window_copy(starts, src, aligned=form != "unaligned")
         want = up.window_copy_plain(starts, src)
         torch.cuda.synchronize()
-        assert up.window_copy.launches == before + 1
+        assert tracer.counters.get("probe.window_copy.launches", 0) == before + 1
         assert torch.equal(got, want)
 
 
@@ -283,11 +289,11 @@ def test_span_density_kernel_matches_plain(variant):
     spans, span_cap = sp.VARIANTS[variant]
     q, src, w_s = sp.make_inputs(8192, 20_000, spans, span_cap, "cuda", seed=2)
     w_s = torch.cat([w_s, torch.full_like(w_s[:8], -(1 << 30))])
-    before = sp.span_density.launches
+    before = tracer.counters.get("probe.span_density.launches", 0)
     got = sp.span_density(q, src, w_s, spans, span_cap)
     want = sp.span_density_plain(q, src, w_s, spans, span_cap)
     torch.cuda.synchronize()
-    assert sp.span_density.launches == before + 1
+    assert tracer.counters.get("probe.span_density.launches", 0) == before + 1
     scale = float(want.abs().max())
     assert scale > 0.0
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
@@ -331,9 +337,9 @@ def test_window_domain_launches_both_kernels_once_a_slab():
     out = {}
     for dev in ("cpu", "cuda"):
         dd = WindowDomain(cfg, b, bg, fluid.n, LocalComm(3), dev)
-        before = (wk.density_window.launches, wk.forces_window.launches)
+        before = _launches("density", "forces")
         state, st = dd.make_multi_step()(dd.init(fluid), g5)
-        after = (wk.density_window.launches, wk.forces_window.launches)
+        after = _launches("density", "forces")
         assert after == tuple(n + (15 if dev == "cuda" else 0) for n in before), (dev, after)
         assert int(st["overflow"].max()) == 0 and int(st["n_valid"][-1]) == fluid.n
         out[dev] = dd.gather(state)
@@ -364,9 +370,9 @@ def test_sticky_group_launches_both_kernels_once_a_slab_a_tick():
     out = {}
     for dev in ("cpu", "cuda"):
         dd, fluid = _pool_domain(20_000, 3, dev)
-        before = (wk.density_window.launches, wk.forces_window.launches)
+        before = _launches("density", "forces")
         state, st = dd.make_multi_step(resort_every=4)(dd.init(fluid), g8)
-        after = (wk.density_window.launches, wk.forces_window.launches)
+        after = _launches("density", "forces")
         assert after == tuple(n + (24 if dev == "cuda" else 0) for n in before), (dev, after)
         assert int(st["overflow"].max()) == 0 and int(st["stale"].sum()) == 0
         assert int(st["n_valid"][-1]) == fluid.n
@@ -389,10 +395,10 @@ def test_domain_render_launches_one_field_kernel_a_slab():
     for dev in ("cpu", "cuda"):
         dd, fluid = _pool_domain(20_000, 3, dev)
         render = dd.make_render(64, 128)
-        before = mw.field_window.launches
+        before = _launches("field")[0]
         fb, ov = render(dd.init(fluid))
         torch.cuda.synchronize()
-        assert mw.field_window.launches == before + (3 if dev == "cuda" else 0)
+        assert _launches("field")[0] == before + (3 if dev == "cuda" else 0)
         assert int(ov) == 0
         frames[dev] = T.unpack_framebuffer(fb.cpu().numpy())
     assert (frames["cuda"] == frames["cpu"]).mean() >= 0.999
@@ -437,16 +443,51 @@ def test_tools_launch_the_kernels_on_the_card():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     from pi_sph_fluid_tpu_torch.tools import dd_probe, render_probe
 
-    before = (wk.density_window.launches, wk.forces_window.launches,
-              mw.field_window.launches)
+    before = _launches("density", "forces", "field")
     out = render_probe.main(["--n", "20000", "--reps", "2"])
-    after = (wk.density_window.launches, wk.forces_window.launches,
-             mw.field_window.launches)
+    after = _launches("density", "forces", "field")
     assert out["device"] == torch.cuda.get_device_name(0)
     assert out["reuse_overflow"] == 0 and out["self_overflow"] == 0
     assert tuple(a - b for a, b in zip(after, before)) == (5, 5, 8), (before, after)
     out = dd_probe.main(["--n", "20000", "--steps", "8"])
     ticks = sum(k + 8 for k in dd_probe.RESORTS)
-    assert (wk.density_window.launches - after[0],
-            wk.forces_window.launches - after[1]) == (ticks, ticks)
+    now = _launches("density", "forces")
+    assert (now[0] - after[0], now[1] - after[1]) == (ticks, ticks)
     assert all(out[f"r{k}"]["n_valid"] == out["n"] for k in dd_probe.RESORTS)
+
+
+@pytest.mark.cuda
+def test_tracer_span_holds_its_launch_on_the_profiler_timeline():
+    """A density launch inside a span of the port's tracer: on a CPU and
+    CUDA profiler timeline its runtime launch call starts inside the span
+    (the tracer's offset onto the profiler's clock holds on the card), and
+    the kernel starts after the call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    eng, fluid = pool_engine(20_000, "cuda")
+    pk, ctx, _ = eng._relayout(eng._initial_packed(fluid))
+    args = (pk, eng._b_geo_d, ctx.spans, eng.cfg, eng.spec)
+    wk.density_window(*args)       # the library's build and a first launch
+    torch.cuda.synchronize()
+    was_on = tracer.on
+    tracer.enable()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            with tracer.span("test.launch") as span:
+                wk.density_window(*args)
+            torch.cuda.synchronize()
+    finally:
+        if not was_on:
+            tracer.disable()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    kernels = [e for e in events
+               if e.device_type() == cuda and "density_window_kernel" in e.name()]
+    assert len(kernels) == 1, [e.name() for e in events if e.device_type() == cuda]
+    calls = [e for e in events if e.device_type() != cuda and e.name().startswith("cuda")
+             and e.correlation_id() == kernels[0].correlation_id()]
+    assert len(calls) == 1
+    t = calls[0].start_ns()
+    assert span.start_ns <= t < span.end_ns, (span, t, calls[0].name())
+    assert kernels[0].start_ns() >= t

@@ -11,8 +11,8 @@ import torch
 import pi_sph_fluid_tpu_torch as T
 from pi_sph_fluid_tpu_torch import dryrun
 from pi_sph_fluid_tpu_torch.io import native
-from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk
 from pi_sph_fluid_tpu_torch.utils.profiling import device_memory, trace
+from pi_sph_fluid_tpu_torch.utils.tracer import tracer
 
 torch.set_num_threads(1)
 
@@ -20,10 +20,11 @@ torch.set_num_threads(1)
 def test_entry_steps_the_drop_through_the_plain_versions():
     """One tick of the drop through WindowEngine on the CPU: the kernels'
     plain versions, no launch, every particle moved by gravity alone."""
-    before = wk.density_window.launches, wk.forces_window.launches
+    keys = ("kernel.density.launches", "kernel.forces.launches")
+    before = [tracer.counters.get(k, 0) for k in keys]
     fn, (sim, g) = dryrun.entry("cpu")
     sim2, st = fn(sim, g)
-    assert (wk.density_window.launches, wk.forces_window.launches) == before
+    assert [tracer.counters.get(k, 0) for k in keys] == before
     assert int(st.neighbor_overflow) == 0 and float(st.max_speed) > 0
     assert sim2.packed.shape == sim.packed.shape
     assert bool(torch.isfinite(sim2.packed).all())

@@ -80,8 +80,8 @@ def test_launch_probe_builds_every_wrappers_call():
     """The launch probe's calls, at a small pool on the CPU: the five
     wrappers by name, the window passes returning their two outputs and
     the field one, through the plain versions (no launch counted)."""
-    from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk
     from pi_sph_fluid_tpu_torch.tools import launch_probe
+    from pi_sph_fluid_tpu_torch.utils.tracer import tracer
 
     calls = launch_probe.wrapper_calls("cpu", 1_500)
     assert list(calls) == ["density_window", "forces_window", "field_window",
@@ -92,4 +92,5 @@ def test_launch_probe_builds_every_wrappers_call():
     assert geo8.shape == pk_next.shape and rp.shape == acc.shape == (geo8.shape[0], 2)
     assert field.dim() == 1 and torch.isfinite(field).all()
     assert torch.isfinite(acc).all() and (rp[:, 0] >= 0).all()
-    assert wk.density_window.launches == wk.forces_window.launches == 0
+    assert (tracer.counters.get("kernel.density.launches", 0)
+            == tracer.counters.get("kernel.forces.launches", 0) == 0)

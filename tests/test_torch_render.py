@@ -31,6 +31,7 @@ from pi_sph_fluid_tpu_torch.ops.window import triple as ttriple
 from pi_sph_fluid_tpu_torch.ops.window import window_kernels as twk
 from pi_sph_fluid_tpu_torch.render import metaballs as tm
 from pi_sph_fluid_tpu_torch.render import metaballs_window as tmw
+from pi_sph_fluid_tpu_torch.utils.tracer import tracer
 
 torch.set_num_threads(1)
 
@@ -115,7 +116,7 @@ def test_field_matches_jax(drop):
     tf, tov = tr.field(convert.packed_sim(jsim, "cpu"))
     assert int(jov) == int(tov) == 0
     _assert_field(tf.numpy(), jf, 5e-5)
-    assert tmw.field_window.launches == 0
+    assert tracer.counters.get("kernel.field.launches", 0) == 0
 
 
 def test_field_from_frame_matches_jax(drop):
@@ -135,7 +136,7 @@ def test_field_from_frame_matches_jax(drop):
     tf, tov = tr.field_from_frame(tsim3, frame)
     assert int(jov) == int(tov) == 0
     _assert_field(tf.numpy(), jf, 5e-5)
-    assert tmw.field_window.launches == 0
+    assert tracer.counters.get("kernel.field.launches", 0) == 0
     # a frame whose T is not this state's own is refused
     with pytest.raises(ValueError, match="layout-fresh"):
         convert.frame(te, tsim3, (jframe[0], np.asarray(jframe[1]) + 1))
