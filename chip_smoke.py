@@ -6,9 +6,9 @@
 Phases, each printing its own line with its seconds:
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
-2. build: nvcc compiles the window kernels (density, forces, field) and
-   the probe kernels (window copy, span density) from the checkout's
-   sources, one nvcc per source, all started together, with ptxas's
+2. build: nvcc compiles the window kernels (density, forces, field), the
+   probe kernels (window copy, span density) and the relayout kernels
+   from the checkout's sources, one nvcc per source, all started together, with ptxas's
    registers and spills for each;
 3. kernels against their plain PyTorch versions on one relayout of the
    100k pool (density and forces through the relayout's span table, at the
@@ -20,6 +20,10 @@ Phases, each printing its own line with its seconds:
    kernel the fluid lanes alone, and the distinct candidate rows they
    touch) and its bound on this card; then the host
    microseconds per launch of each of the five wrappers (launch_host);
+   then the relayout kernels against the plain chain at 100k and 1M
+   (relayout: every output bitwise, CUDA-event ms, device ms and device
+   operations a relayout of each, the kernels' host us, bytes and the
+   bound);
 4. the 100k pool (bench.py's operating point) through WindowEngine: prime,
    64 ticks at resort_every=1, 384 ticks at resort_every=64; the launch
    counters must grow by exactly one per tick; the plain path's ms/tick on
@@ -27,7 +31,10 @@ Phases, each printing its own line with its seconds:
    more carried ticks of a 64-tick sticky group over a 2-tick one add no
    host sync, no ``index_select``, no ``index`` and no ``cat``; that a
    rendered frame launches no ``index_select`` and no ``cat`` and costs the
-   host no wait, and that a relayout runs one ``cummax``;
+   host no wait, and that a relayout on the card runs no ``cummax``, no
+   ``bincount`` and no ``nonzero``, never waits for the host (the sync
+   debug mode and the profiler) and launches at most 20 kernels, the
+   sort's included;
 5. dd: the same 100k pool as a slab decomposition (parallel/domain_window
    .WindowDomain) of 1, 2 and 4 slabs under LocalComm: 15 exact steps
    from zeroed accelerations against the single engine started the same
@@ -67,15 +74,19 @@ Phases, each printing its own line with its seconds:
    file display, about 30 dispatches of one 60 Hz frame each: one frame
    written and one field launch per dispatch, no recovery, overflow and
    stale 0, the floor row lit in every frame, the launch counters set to
-   0 just before and read just after; then ``cli bench`` on the 1M pool
+   0 just before and read just after, and the relayout counter equal to
+   the run's ``stepper.relayout`` spans and above 0 (every relayout of the
+   run went down the relayout kernels); then ``cli bench`` on the 1M pool
    with rendering;
 11. runner_recovery: ``cli run`` on the 100k pool at the CLI defaults,
    where the startup jets overflow the cap: at least one recovery, one
    field launch per dispatch run (replays included), one frame written per
-   dispatch less the one each revert drops, overflow and stale 0 at the end;
+   dispatch less the one each revert drops, overflow and stale 0 at the end,
+   the relayouts counted as in runner;
    runner_dd: ``cli run --backend window-dd --slabs 4`` on the dam at the
    CLI defaults with a file display: 4 field launches a dispatch run, one
-   frame a dispatch less one a revert, overflow and stale 0 at the end;
+   frame a dispatch less one a revert, overflow and stale 0 at the end,
+   the relayouts counted as in runner;
    runner_dd_mp: the same command as two processes on this card
    (``--num-processes 2 --dist-backend gloo``): process 0's frame file
    byte-equal to runner_dd's and its recovery lines the same, process 1
@@ -106,7 +117,8 @@ Phases, each printing its own line with its seconds:
    pre-roll dispatch; stale and overflow 0), cfl_probe on the 100k pool
    (one 0.1 sim-s report, overflow and stale 0, under 40 m/s), and
    frames_to_gif on the runner phase's own capture, its GIF decoded here
-   frame by frame and equal to the capture;
+   frame by frame and equal to the capture; the relayouts counted as in
+   runner;
 16. divergence: from one state, 1024 ticks at resort_every 1, 8 and 64
    and at 1 from every fluid x one ulp up (the chaos control), by id every
    128 ticks (max |dx, dy|, max |du, dv|, max relative d rho against r1,
@@ -149,6 +161,7 @@ import pi_sph_fluid_tpu_torch as T  # noqa: E402
 from pi_sph_fluid_tpu_torch import cli  # noqa: E402
 from pi_sph_fluid_tpu_torch.models import engine_v3  # noqa: E402
 from pi_sph_fluid_tpu_torch.ops.window import _build  # noqa: E402
+from pi_sph_fluid_tpu_torch.ops.window import relayout  # noqa: E402
 from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk  # noqa: E402
 from pi_sph_fluid_tpu_torch.models import simulation  # noqa: E402
 from pi_sph_fluid_tpu_torch.parallel import LocalComm, WindowDomain  # noqa: E402
@@ -163,7 +176,8 @@ from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up  # noqa: E402
 from pi_sph_fluid_tpu_torch.utils.profiling import (bound, call_device_ms,  # noqa: E402
                                                     covered, device_breakdown,
                                                     device_memory, event_ms,
-                                                    kernel_device_ms, pool_engine)
+                                                    host_us, kernel_device_ms,
+                                                    pool_engine)
 from pi_sph_fluid_tpu_torch.utils.tracer import tracer  # noqa: E402
 
 G = (0.0, -9.81)
@@ -236,12 +250,19 @@ KERNELS = {
     "span_density": (sp.span_density, "tools/span_dma_probe.py:38", PROBE_SRC),
 }
 SIM_KERNELS = ("density_window", "forces_window", "field_window")
+# the relayout's kernels, which replace no TPU kernel (ops/window/relayout.py)
+RELAYOUT_SRC = "pi_sph_fluid_tpu_torch/csrc/relayout_kernels.cu"
+RELAYOUT_LAUNCHES = 20  # most kernel launches a card relayout may make, the sort's included
+# the runtime's kernel launch calls, as the profiler names them on the host
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
 # each wrapper's launch counter in utils/tracer.py's counters
 COUNTER = {"density_window": "kernel.density.launches",
            "forces_window": "kernel.forces.launches",
            "field_window": "kernel.field.launches",
            "window_copy": "probe.window_copy.launches",
-           "span_density": "probe.span_density.launches"}
+           "span_density": "probe.span_density.launches",
+           "relayout": "kernel.relayout.launches"}
 # float32 operations per pair lane (sqrt, max and select counted as one;
 # far_flops where the kernel needs only dx, dy, r^2 and the compare of a lane
 # out of the query's reach, whose term is 0),
@@ -274,7 +295,29 @@ def _reset_counts() -> None:
 
 
 def _counts() -> dict:
-    return {name: tracer.counters.get(COUNTER[name], 0) for name in KERNELS}
+    return {name: tracer.counters.get(key, 0) for name, key in COUNTER.items()}
+
+
+@contextlib.contextmanager
+def _relayout_spans(info: dict):
+    """Records the port's spans while inside, then puts the number of
+    ``stepper.relayout`` spans recorded in ``info["relayout_spans"]`` and
+    drops the records.  Every relayout on the card goes down the kernels,
+    so a run's relayout counter must equal it, and be above 0."""
+    n0 = len(tracer.spans)
+    tracer.enable()
+    try:
+        yield
+    finally:
+        tracer.disable()
+        info["relayout_spans"] = sum(s.name == "stepper.relayout" for s in tracer.spans[n0:])
+        del tracer.spans[n0:]
+
+
+def _check_relayouts(counts: dict) -> None:
+    """A run's counts (``_counts`` and ``_relayout_spans``'): one relayout
+    counted a ``stepper.relayout`` span, and some."""
+    assert counts["relayout"] == counts["relayout_spans"] > 0, counts
 
 
 def _gravity(n: int) -> np.ndarray:
@@ -597,10 +640,7 @@ def check_frame_ops(eng, sim, frame) -> dict:
     """A rendered frame prepares no candidates: by the profiler's host-side
     counts, N_FRAMES calls of ``render_from_frame`` launch no
     ``index_select`` and no ``cat`` and wait for the device not once; and a
-    relayout runs exactly one ``cummax`` (the layout's row table; the
-    candidate map's is gone), counted as ``aten::_cummax_helper``, which a
-    call of ``torch.cummax`` reaches once (it records ``aten::cummax``
-    twice, for the functional and the out form)."""
+    relayout on the card runs the relayout kernels (check_relayout_ops)."""
     rend = mw.WindowRenderer(eng, *SHAPES[0])
     rend.render_from_frame(sim, frame)
     b = device_breakdown(lambda: [rend.render_from_frame(sim, frame)
@@ -610,13 +650,106 @@ def check_frame_ops(eng, sim, frame) -> dict:
     assert all(v == 0 for v in frame_ops.values()), frame_ops
     fields = [cnt for key, _, cnt in b["rows"] if "field_window_kernel" in key]
     assert fields and sum(fields) <= N_FRAMES, b["rows"][:6]
-    eng._relayout(sim.packed)
-    cummax = device_breakdown(lambda: eng._relayout(sim.packed), DEV)["ops"].get(
-        "aten::_cummax_helper", 0)
-    assert cummax == 1, f"{cummax} cummax calls in one relayout"
+    ops = check_relayout_ops(eng, sim.packed)
     return dict(frame_index_select=0, frame_cat=0, frame_syncs=0,
                 frame_launches=sum(r[2] for r in b["rows"]) / N_FRAMES,
-                relayout_cummax=cummax)
+                **{f"relayout_{k}": v for k, v in ops.items()})
+
+
+def check_relayout_ops(eng, packed) -> dict:
+    """One relayout on the card runs no ``cummax`` (nor ``bincount``, nor
+    ``nonzero``, which boolean-mask indexing runs), waits for the host not once (the
+    sync debug mode raises on any synchronising call, and the profiler
+    counts no runtime synchronisation) and launches at most
+    RELAYOUT_LAUNCHES kernels, the sort's included (the runtime's launch
+    calls, counted on the host, where the trace is complete)."""
+    eng._relayout(packed)
+    _sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._relayout(packed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    _sync()
+    with torch.profiler.profile(activities=acts) as prof:
+        eng._relayout(packed)
+        _sync()
+    events = {e.key: e.count for e in prof.key_averages()}
+    out = dict(
+        cummax=events.get("aten::cummax", 0) + events.get("aten::_cummax_helper", 0),
+        bincount=events.get("aten::bincount", 0),
+        nonzero=events.get("aten::nonzero", 0),
+        # the host waiting on the stream (.item(), nonzero, a boolean mask);
+        # the device-wide wait of _sync above is not the relayout's
+        syncs=sum(events.get(k, 0) for k in ("cudaStreamSynchronize",
+                                              "cudaEventSynchronize")),
+        launches=sum(n for k, n in events.items() if k in LAUNCH_CALLS))
+    assert out["cummax"] == out["bincount"] == out["nonzero"] == out["syncs"] == 0, out
+    assert 1 <= out["launches"] <= RELAYOUT_LAUNCHES, out
+    return out
+
+
+def _relayout_bytes(eng) -> int:
+    """What a relayout must move at least: each input once (the packed
+    state, the boundary CSR and start grid, the inert row) and each output
+    once (the new state, order, layout_src, the start grid, T, the windows,
+    the span table and the overflow)."""
+    cfg, spec = eng.cfg, eng.spec
+    n, grid = spec.n_layout, cfg.n_cell_rows * (cfg.n_cell_cols + 1)
+    blocks = n // spec.qb
+    inputs = n * 32 + (cfg.n_cells + 1) * 4 + grid * 4 + 32
+    outputs = (n * (32 + 8 + 4) + grid * 4 + (cfg.n_cells + 1) * 32
+               + blocks * (8 + spec.n_spans * 8) + 4)
+    return inputs + outputs
+
+
+def run_relayout(results: dict) -> dict:
+    """The relayout kernels against the plain chain (ops/window/relayout.py)
+    at 100k and 1M particles, from a primed pool kicked and drifted one
+    tick (a layout-order state, as every relayout of a run gets): every
+    output bitwise equal; CUDA-event ms of each, the profiler's device ms
+    and device operations (kernels, memsets and copies) a relayout of each,
+    the kernels' host us a relayout, bytes and the bound.  The 1M row is
+    the one results keep."""
+    out = {}
+    for label, n_target in (("100k", N_POOL), ("1M", N_BIG)):
+        eng, fluid = pool_engine(n_target, DEV)
+        pk = eng._kick_drift(eng.prime(fluid, G))
+        fixed = (eng.spec, eng.cfg, pk, eng.b_cell_starts, eng._b_grid, eng._inert_row)
+        got, want = eng._relayout_order(pk), relayout.relayout_plain(*fixed)
+        _sync()
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)), label
+        assert torch.equal(got[3], want[3]) and torch.equal(got[2], want[2]), label
+        for f in want[1]._fields:
+            assert torch.equal(getattr(got[1], f), getattr(want[1], f)), (label, f)
+        kernel = device_breakdown(lambda: [eng._relayout(pk) for _ in range(10)], DEV)
+        plain = device_breakdown(lambda: [relayout.relayout_plain(*fixed)
+                                          for _ in range(3)], DEV)
+        r = dict(n_fluid=fluid.n, n_layout=eng.n_layout,
+                 ms=event_ms(lambda: eng._relayout(pk), 20),
+                 device_ms=kernel["busy_s"] * 1e3 / 10,
+                 device_ops=sum(c for _, _, c in kernel["rows"]) / 10,
+                 host_us=min(host_us(lambda: eng._relayout(pk), 40) for _ in range(3)),
+                 plain_ms=event_ms(lambda: relayout.relayout_plain(*fixed), 3),
+                 plain_device_ms=plain["busy_s"] * 1e3 / 3,
+                 plain_device_ops=sum(c for _, _, c in plain["rows"]) / 3,
+                 plain_syncs=plain["syncs"] / 3,
+                 kernels=json.dumps({k[:48]: round(t * 1e3 / 10, 5)
+                                     for k, t, _ in kernel["rows"]}),
+                 **bound(_relayout_bytes(eng), 0))
+        out[label] = r
+        print(f"  relayout {label} ({fluid.n} fluid, {eng.n_layout} slots): kernels "
+              f"{r['ms']:.4f} ms by events, device {r['device_ms']:.4f} ms in "
+              f"{r['device_ops']:.1f} operations, host {r['host_us']:.1f} us; plain "
+              f"{r['plain_ms']:.4f} ms, device {r['plain_device_ms']:.4f} ms in "
+              f"{r['plain_device_ops']:.1f} operations, {r['plain_syncs']:.1f} syncs; "
+              f"{r['bytes']} B: bound {r['bound_ms']:.6f} ms; {r['kernels']}",
+              flush=True)
+        del eng, fluid, pk, got, want
+    results["relayout"].update(out["1M"], at_100k=out["100k"])
+    return {f"{label}_{k}": v for label, r in out.items()
+            for k, v in r.items() if k != "kernels"}
 
 
 def _median_ms(fn, n_steps: int, runs: int = DD_RUNS) -> tuple:
@@ -914,13 +1047,13 @@ def run_runner_dd() -> dict:
     overflow and stale 0 at the end.  Also returns the frame file's bytes
     and the recovery lines, which runner_dd_mp holds its processes to."""
     k = RUNNER_DD_K
-    err = io.StringIO()
+    err, spans = io.StringIO(), {}
     with tempfile.TemporaryDirectory() as tmp:
         path = pathlib.Path(tmp) / "frames.bin"
         _reset_counts()
-        with contextlib.redirect_stderr(err):
+        with contextlib.redirect_stderr(err), _relayout_spans(spans):
             res = cli.main(_runner_dd_argv(path))
-        counts = _counts()
+        counts = dict(_counts(), **spans)
         raw = path.read_bytes()
     sys.stderr.write(err.getvalue())
     frames = np.frombuffer(raw, np.uint8).reshape(-1, 1024)
@@ -934,6 +1067,7 @@ def run_runner_dd() -> dict:
     assert frames.shape[0] == res.dispatches - res.recoveries, info
     assert counts["field_window"] == RUNNER_DD_SLABS * res.dispatches, info
     assert counts["density_window"] > 0 and counts["forces_window"] > 0, info
+    _check_relayouts(counts)
     assert res.reporter.total_overflow == 0 and res.reporter.total_stale == 0, info
     assert all(T.unpack_framebuffer(fb).any() for fb in frames), "an unlit frame"
     info["recovery_lines"] = _recovery(err.getvalue())
@@ -1186,6 +1320,8 @@ def run() -> dict:
                ptxas=json.dumps(ptxas))
     results = {name: {"name": name, "route": "cuda", "source": k[2],
                       "replaces": k[1]} for name, k in KERNELS.items()}
+    results["relayout"] = {"name": "relayout", "route": "cuda", "source": RELAYOUT_SRC,
+                           "replaces": "none: the JAX relayout is jnp code"}
 
     t0 = time.perf_counter()
     eng, fluid = pool_engine(N_POOL, DEV)
@@ -1197,6 +1333,9 @@ def run() -> dict:
     for name, r in host.items():
         results[name]["host_us"] = r["host_us"]
     _phase("launch_host", t0, **{f"{k}_us": f"{v['host_us']:.2f}" for k, v in host.items()})
+
+    t0 = time.perf_counter()
+    _phase("relayout", t0, **run_relayout(results))
 
     t0 = time.perf_counter()
     pool = run_pool(eng, fluid)
@@ -1250,6 +1389,7 @@ def run() -> dict:
     for name in SIM_KERNELS:
         results[name]["launches"] = info["launches"][name]
         results[name]["library_ms"] = None
+    results["relayout"]["launches"] = info["launches"]["relayout"]
     _phase("runner", t0, **info)
 
     t0 = time.perf_counter()
@@ -1257,7 +1397,7 @@ def run() -> dict:
 
     t0 = time.perf_counter()
     info = run_runner_dd()
-    for name in SIM_KERNELS:
+    for name in (*SIM_KERNELS, "relayout"):
         results[name]["runner_dd_launches"] = info["launches"][name]
     runner_dd = {key: info.pop(key) for key in ("_frames", "recovery_lines")}
     _phase("runner_dd", t0, recovery_lines=json.dumps(runner_dd["recovery_lines"]), **info)
@@ -1276,7 +1416,7 @@ def run() -> dict:
 
     t0 = time.perf_counter()
     info = run_tools(capture)
-    for name in SIM_KERNELS:
+    for name in (*SIM_KERNELS, "relayout"):
         results[name]["tools_launches"] = info["launches"][name]
     _phase("tools", t0, **info)
 
@@ -1350,18 +1490,22 @@ def _cli_run(n_dispatch: int, dt_factor: float, *opts: str):
     r = math.sqrt(6.35 / N_POOL)
     dt = T.SPHConfig(r=r, dt_factor=dt_factor).dt
     k = -(-int(round(1.0 / (60.0 * dt))) // 8) * 8
+    spans = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = pathlib.Path(tmp) / "frames.bin"
         _reset_counts()
-        res = cli.main(["run", "--scene", "pool", "--r", repr(r), "--device", "cuda",
-                        "--display", f"file:{path}", "--dt-factor", repr(dt_factor),
-                        "--seconds", repr(n_dispatch * k * dt), *opts])
+        with _relayout_spans(spans):
+            res = cli.main(["run", "--scene", "pool", "--r", repr(r), "--device", "cuda",
+                            "--display", f"file:{path}", "--dt-factor", repr(dt_factor),
+                            "--seconds", repr(n_dispatch * k * dt), *opts])
         counts = _counts()
         frames = np.fromfile(path, np.uint8).reshape(-1, 1024)
+    counts["relayout_spans"] = spans["relayout_spans"]
     assert res.steps == n_dispatch * k, (res.steps, n_dispatch, k)
     assert res.reporter.total_overflow == 0, res.reporter.total_overflow
     assert res.reporter.total_stale == 0, res.reporter.total_stale
     assert all(counts[k] > 0 for k in SIM_KERNELS), counts
+    _check_relayouts(counts)
     # one render per dispatch run, replays included; a revert drops the one
     # frame it had pending
     assert counts["field_window"] == res.dispatches, (counts, res.dispatches)
@@ -1466,8 +1610,18 @@ def run_tools(capture: bytes) -> dict:
     cfl_probe on the 100k pool, and frames_to_gif on the runner phase's own
     capture, its GIF decoded frame by frame against the capture.  Any
     overflow, stale count, lost particle or assertion fails the phase."""
-    out = {}
+    out, spans = {}, {}
     _reset_counts()
+    with _relayout_spans(spans):
+        _run_tools(capture, out)
+    out["launches"] = dict(_counts(), **spans)
+    assert all(out["launches"][k] > 0 for k in SIM_KERNELS), out["launches"]
+    _check_relayouts(out["launches"])
+    return out
+
+
+def _run_tools(capture: bytes, out: dict) -> None:
+    """run_tools' runs, their numbers put in ``out``."""
     dev = ["--device", DEV.type]
     rp = render_probe.main(["--n", str(N_BIG), "--rows", "64", "--cols", "128", *dev])
     assert rp["step_overflow"] == rp["reuse_overflow"] == rp["self_overflow"] == 0, rp
@@ -1505,9 +1659,6 @@ def run_tools(capture: bytes) -> dict:
         assert np.array_equal(np.asarray(px, np.uint8).reshape(64, 128),
                               T.unpack_framebuffer(fb)), "a GIF frame differs"
     out["gif_frames"] = len(frames)
-    out["launches"] = _counts()
-    assert all(out["launches"][k] > 0 for k in SIM_KERNELS), out["launches"]
-    return out
 
 
 def _divergence_run(eng, sim, k: int, ulp: bool, ref: dict | None, cert) -> dict:

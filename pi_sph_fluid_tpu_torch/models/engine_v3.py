@@ -33,9 +33,9 @@ import torch
 
 from ..config import SPHConfig
 from ..core.kernels import div_scalar
-from ..ops.grid import GridContext, cell_ids, csr_starts
+from ..ops.grid import GridContext
+from ..ops.window.relayout import relayout
 from ..ops.window.triple import (INERT_X, Frame, TripleCtx, TripleSpec,
-                                 block_spans, block_windows, build_frame,
                                  start_grid, triple_spec)
 from ..ops.window.window_kernels import density_window, forces_window
 from ..state import BoundaryState, FluidState
@@ -110,26 +110,8 @@ class WindowEngine:
         j holds input row ``order[ctx.layout_src[j]]`` where
         ``layout_src[j] < n_layout`` (else the inert row).  The slab
         decomposition's sticky group maps its halo rows to slots with it."""
-        cfg, spec = self.cfg, self.spec
-        x, y, m = packed[:, 0], packed[:, 1], packed[:, 4]
-        keys = torch.where(m > 0, cell_ids(x, y, cfg),
-                           torch.full_like(m, cfg.n_cells, dtype=_I32))
-        order = torch.argsort(keys, stable=True)
-        cell_starts = csr_starts(keys, cfg.n_cells + 2)
-        layout_src, T, row_shift = build_frame(
-            spec, cfg, cell_starts, self.b_cell_starts)
-        packed_sorted = torch.cat([packed[order], self._inert_row])
-        packed_new = packed_sorted[layout_src.long()]
-        live = packed_new[:, 4] > 0
-        cells = torch.where(live, cell_ids(packed_new[:, 0], packed_new[:, 1], cfg),
-                            torch.full_like(live, cfg.n_cells, dtype=_I32))
-        w_start, w_len, flen, overflow = block_windows(spec, cfg, cells, T)
-        f_grid = start_grid(cfg, cell_starts, row_shift)
-        spans = block_spans(spec, cfg, cells, f_grid, self._b_grid)
-        ctx = TripleCtx(layout_src=layout_src, start_grid=f_grid,
-                        w_start=w_start, w_len=w_len, flen=flen, T=T,
-                        overflow=overflow, spans=spans)
-        return packed_new, ctx, overflow, order
+        return relayout(self.spec, self.cfg, packed, self.b_cell_starts,
+                        self._b_grid, self._inert_row)
 
     def _pair_acc(self, packed, ctx: TripleCtx, g,
                   half_dt: float = 0.0, damp: float = 1.0):

@@ -16,7 +16,8 @@ import torch
 
 from ..config import SPHConfig
 
-__all__ = ["GridContext", "cell_coords", "cell_ids", "build_grid", "row_spans"]
+__all__ = ["GridContext", "inv_cell_length", "cell_coords", "cell_ids", "build_grid",
+           "row_spans"]
 
 
 class GridContext(NamedTuple):
@@ -39,9 +40,14 @@ def _floor_index(a: torch.Tensor, inv: float, n: int) -> torch.Tensor:
     return torch.clamp(f.to(torch.int32), 0, n - 1)
 
 
+def inv_cell_length(cfg: SPHConfig) -> float:
+    """The inverse cell length, one float32 division (`grid.py:55-58`)."""
+    return float(np.float32(1.0) / np.float32(cfg.cell_length))
+
+
 def cell_coords(x: torch.Tensor, y: torch.Tensor, cfg: SPHConfig):
     """(row, col) int32 cell coordinates, clamped into the grid."""
-    inv = float(np.float32(1.0) / np.float32(cfg.cell_length))
+    inv = inv_cell_length(cfg)
     return (_floor_index(y, inv, cfg.n_cell_rows),
             _floor_index(x, inv, cfg.n_cell_cols))
 

@@ -2,8 +2,9 @@
 
 ``nvcc`` compiles each source under ``csrc/`` for ``sm_90a`` into its own
 shared library with a plain C interface, on first use, into ``build/`` at
-the repository root: ``window_kernels.cu`` (density, forces, field) and
-``probe_kernels.cu`` (the window-copy and span probes).  A library's name
+the repository root: ``window_kernels.cu`` (density, forces, field),
+``probe_kernels.cu`` (the window-copy and span probes) and
+``relayout_kernels.cu`` (the relayout).  A library's name
 carries a hash of its source and flags, so an edited source rebuilds that
 library alone.  It is loaded with ``ctypes``; pointers and the stream travel
 as ``c_void_p``.  A failed build raises: there is no fallback.
@@ -38,6 +39,11 @@ SOURCES = {
     "probe_kernels": (_PKG / "csrc" / "probe_kernels.cu", {
         "window_copy": [_P] * 3 + [_I] * 5 + [_P],
         "span_density": [_P] * 4 + [_I] * 5 + [_P],
+    }),
+    "relayout_kernels": (_PKG / "csrc" / "relayout_kernels.cu", {
+        "relayout_ws_ints": [_I] * 3,
+        "relayout_keys": [_P] * 3 + [_I] * 4 + [_F] + [_P],
+        "relayout_frame": [_P] * 14 + [_I] * 9 + [_F] + [_P],
     }),
 }
 

@@ -23,7 +23,11 @@ and closed on one thread, the runner's.
 Counters (``tracer.count``, ``tracer.counters``) are always on: the kernel
 wrappers count their launches here (``kernel.density.launches``,
 ``kernel.forces.launches``, ``kernel.field.launches``, and the probes'
-``probe.window_copy.launches``, ``probe.span_density.launches``).
+``probe.window_copy.launches``, ``probe.span_density.launches``), one a
+kernel launch.  ``kernel.relayout.launches`` is the exception: it counts
+relayouts that went down the relayout kernels (ops/window/relayout.py),
+one a relayout, for all of that relayout's launches (its kernels and the
+sort's).
 
 ``tracer.to_chrome(path)`` writes the spans as one Chrome trace-event JSON
 file (Perfetto, chrome://tracing); ``cli.py run --trace-out F.json`` does

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from pi_sph_fluid_tpu_torch.models.engine_v3 import PackedSim
+from pi_sph_fluid_tpu_torch import SPHConfig, build_drop_scene, prepare_boundary
+from pi_sph_fluid_tpu_torch.models.engine_v3 import PackedSim, WindowEngine
+from pi_sph_fluid_tpu_torch.ops.window import relayout as rl
 from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk
 from pi_sph_fluid_tpu_torch.ops.window.triple import Frame
 from pi_sph_fluid_tpu_torch.render import metaballs_window as mw
@@ -172,6 +174,139 @@ def test_span_kernels_take_garbage_spans_and_small_blocks():
         torch.cuda.synchronize()
         torch.testing.assert_close(rpk[:, 0], rpp[:, 0], rtol=1e-6, atol=0)
         torch.testing.assert_close(acck, accp, rtol=2e-5, atol=2e-4)
+
+
+def _assert_relayout_matches_plain(eng, packed):
+    """The engine's relayout of ``packed`` (the kernels) against the plain
+    chain on the same CUDA tensor, bitwise in every output: the packed state
+    (as bits), order, each TripleCtx field and the overflow.  The kernels'
+    relayout must not wait for the host once (the sync debug mode raises on
+    any synchronising call) and counts one ``kernel.relayout.launches``.
+    Returns the kernels' (packed_new, ctx, overflow, order)."""
+    fixed = (eng.b_cell_starts, eng._b_grid, eng._inert_row)
+    want = rl.relayout_plain(eng.spec, eng.cfg, packed, *fixed)
+    eng._relayout_order(packed)        # the library's build and a first call
+    torch.cuda.synchronize()
+    before = tracer.counters.get("kernel.relayout.launches", 0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = eng._relayout_order(packed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tracer.counters.get("kernel.relayout.launches", 0) == before + 1
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[3], want[3]) and torch.equal(got[2], want[2])
+    for f in want[1]._fields:
+        a, b = getattr(got[1], f), getattr(want[1], f)
+        assert a.dtype == b.dtype == torch.int32 and a.shape == b.shape, f
+        assert torch.equal(a, b), f
+    return got
+
+
+@pytest.mark.cuda
+def test_relayout_kernels_match_plain_on_pool(pool_frame):
+    """The pool fixture's layout-order state (its three caps; at cap 96 the
+    windows overflow) relaid out by the kernels and by the plain chain."""
+    eng, pk, ctx = pool_frame
+    got = _assert_relayout_matches_plain(eng, pk)
+    assert int(got[2]) == int(ctx.overflow)
+    assert torch.equal(got[0], pk)     # a fresh layout moves no row
+
+
+def _drop_engine(**kw):
+    cfg = SPHConfig()
+    fluid, braw = build_drop_scene(cfg, "cuda")
+    b, bg = prepare_boundary(braw, cfg)
+    return WindowEngine(cfg, b, bg, fluid.n, "cuda", **kw), fluid
+
+
+def _relayout_input(case: str):
+    """(engine, packed input, what the case must show) of a relayout case."""
+    if case == "drop_269":
+        eng, fluid = _drop_engine()
+        return eng, eng._initial_packed(fluid), None
+    if case == "drop_small_blocks":
+        eng, fluid = _drop_engine(tq=32, qb=8, cap=256, seg_q=3)
+        return eng, eng._initial_packed(fluid), None
+    if case == "trailing_rows_empty":
+        eng, fluid = pool_engine(20_000, "cuda")     # water to 0.85 of the height
+        return eng, eng._initial_packed(fluid), "trailing"
+    if case == "pads_among_live":
+        eng, fluid = pool_engine(20_000, "cuda")
+        pk = eng._initial_packed(fluid)
+        pk[::7, 4] = 0.0
+        # and the input not in layout order
+        perm = torch.randperm(pk.shape[0], generator=torch.Generator().manual_seed(5))
+        return eng, pk[perm.cuda()].contiguous(), None
+    if case == "cap_too_small":
+        eng, fluid = pool_engine(20_000, "cuda", cap=32)
+        return eng, eng._initial_packed(fluid), "overflow"
+    if case == "tank_1m":
+        eng, fluid = pool_engine(1_000_000, "cuda")
+        return eng, eng._initial_packed(fluid), None
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["drop_269", "drop_small_blocks",
+                                  "trailing_rows_empty", "pads_among_live",
+                                  "cap_too_small", "tank_1m"])
+def test_relayout_kernels_match_plain(case):
+    """The relayout kernels against the plain chain from an initial state:
+    the 269 drop (empty grid rows under and over it), the same with qb = 8
+    and seg_q = 3, a 20k pool (its last grid rows, above the water, hold no
+    fluid), the pool with every seventh row a pad and the rows
+    shuffled, a cap the windows overflow (the overflow counts equal), and
+    the ~1M pool lattice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    eng, pk, shows = _relayout_input(case)
+    got = _assert_relayout_matches_plain(eng, pk)
+    ctx, ov = got[1], int(got[2])
+    if shows == "overflow":
+        assert ov > 0
+    else:
+        assert ov == 0
+    if shows == "trailing":
+        m = eng.cfg.n_cell_cols
+        last = ctx.start_grid.view(eng.cfg.n_cell_rows, m + 1)[-3:]
+        assert bool((last[:, 0] == last[:, m]).all())   # no fluid in the last rows
+
+
+@pytest.mark.cuda
+def test_relayout_counter_equals_relayout_spans():
+    """Over a prime, 4 exact ticks and a sticky group of 4 on the card,
+    ``kernel.relayout.launches`` rises by exactly one for each of the
+    tracer's ``stepper.relayout`` spans (1 + 4 + 1), and a carried tick of
+    the sticky group waits for the host not once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    eng, fluid = pool_engine(5_000, "cuda")
+    g = np.tile(np.float32(G), (4, 1))
+    eng.make_multi_step()(eng.prime(fluid, G), g)      # builds, warms up
+    torch.cuda.synchronize()
+    was_on = tracer.on
+    tracer.enable()
+    n_spans = len(tracer.spans)
+    before = tracer.counters.get("kernel.relayout.launches", 0)
+    try:
+        sim = eng.prime(fluid, G)
+        sim, _ = eng.make_multi_step()(sim, g)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sim, st = eng.make_multi_step(resort_every=4)(sim, g)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    finally:
+        if not was_on:
+            tracer.disable()
+    spans = [sp_ for sp_ in tracer.spans[n_spans:] if sp_.name == "stepper.relayout"]
+    assert len(spans) == 6
+    assert tracer.counters["kernel.relayout.launches"] - before == len(spans)
+    assert int(st.neighbor_overflow.max()) == 0 and int(st.stale.max()) == 0
 
 
 def _pool_frame_for_render():

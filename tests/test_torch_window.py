@@ -20,6 +20,7 @@ from pi_sph_fluid_tpu.ops.pallas.window_kernels import (density_window_call,
 
 import pi_sph_fluid_tpu_torch as T
 from pi_sph_fluid_tpu_torch import convert
+from pi_sph_fluid_tpu_torch.ops.window import relayout as rl
 from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk
 from pi_sph_fluid_tpu_torch.utils.tracer import tracer
 
@@ -43,23 +44,60 @@ def _engines(cfg_kw, scene, fluid_fn=None, **kw):
     return je, te, fluid
 
 
+def _on_floor(cfg, fluid):
+    """The drop lowered to rest 2 R above the floor: every grid row above
+    it, the last ones included, holds no fluid."""
+    y = np.asarray(fluid.y)
+    return fluid._replace(y=jnp.asarray(y - (y.min() - np.float32(2 * cfg.r))))
+
+
+def _one_row(cfg, fluid):
+    """Every particle of the drop in grid row 3, its x kept."""
+    y = np.full(fluid.n, 3.5 * cfg.cell_length, np.float32)
+    return fluid._replace(y=jnp.asarray(y))
+
+
+def _pad_rows(cfg, fluid):
+    """Every fifth particle of the drop a pad (m = 0) among the live ones."""
+    m = np.asarray(fluid.m).copy()
+    m[::5] = 0.0
+    return fluid._replace(m=jnp.asarray(m))
+
+
+# what each edge case must show of its packed state: (rows, m, live rows)
+_EDGES = {
+    "drop_trailing_empty": lambda rows, m, live: rows[live].max() <= m - 4,
+    "drop_one_row": lambda rows, m, live: (rows[live] == 3).all(),
+    "drop_pad_rows": lambda rows, m, live: (~live[:np.nonzero(live)[0].max()]).sum() > 40,
+}
+
+
 @pytest.mark.parametrize("case", ["dam_small", "drop_small", "pool_default",
-                                  "dam_cap128"])
+                                  "dam_cap128", *_EDGES])
 def test_relayout_integer_arrays_equal(case):
     """layout_src, w_start, w_len, flen, T and overflow equal the JAX
     relayout's exactly (dtype included), and so does the packed state; the
     port builds no trip_src, and its span table names the rows of every
-    window of JAX's."""
-    cfg_kw, scene, kw = {
-        "dam_small": ({}, "dam", SMALL),
+    window of JAX's.  The last three cases are the edges the CUDA relayout
+    meets: trailing grid rows with no fluid, every particle in one grid
+    row, and pads (m = 0) among the live rows."""
+    cfg_kw, scene, kw, fluid_fn = {
+        "dam_small": ({}, "dam", SMALL, None),
         # empty grid rows between the drop and the floor: zero-length runs
-        "drop_small": ({}, "drop", SMALL),
-        "pool_default": ({"r": 0.03}, "pool", {}),
+        "drop_small": ({}, "drop", SMALL, None),
+        "pool_default": ({"r": 0.03}, "pool", {}, None),
         # qb=16 widens the windows past 128 lanes on this scene
-        "dam_cap128": ({}, "dam", dict(tq=32, qb=16, cap=128, seg_q=2)),
+        "dam_cap128": ({}, "dam", dict(tq=32, qb=16, cap=128, seg_q=2), None),
+        "drop_trailing_empty": ({}, "drop", SMALL, _on_floor),
+        "drop_one_row": ({}, "drop", SMALL, _one_row),
+        "drop_pad_rows": ({}, "drop", SMALL, _pad_rows),
     }[case]
-    je, te, fluid = _engines(cfg_kw, scene, **kw)
+    je, te, fluid = _engines(cfg_kw, scene, fluid_fn, **kw)
     pk = np.asarray(je._initial_packed(fluid))
+    if case in _EDGES:
+        live = pk[:, 4] > 0
+        rows = np.floor(pk[:, 1] / np.float32(te.cfg.cell_length)).astype(int)
+        assert _EDGES[case](rows, te.cfg.n_cell_rows, live), case
     jpk, jctx, jov = jax.jit(je._relayout)(jnp.asarray(pk))
     tpk, tctx, tov = te._relayout(torch.tensor(pk))
     np.testing.assert_array_equal(tpk.numpy(), np.asarray(jpk))
@@ -225,3 +263,31 @@ def test_wrappers_raise_off_cpu_and_cuda():
         wk.density_window(q, te._b_geo_d, torch.zeros((sp.shape[0], 34, 2),
                                                       dtype=torch.int32),
                           te.cfg, s._replace(seg_q=15))
+
+
+def test_relayout_wrapper_plain_on_cpu_raises_elsewhere():
+    """The relayout wrapper runs the plain chain on CPU tensors, bitwise,
+    and counts no kernel relayout; a tensor on a device with no kernel
+    raises, and so does an argument of the wrong type, shape or layout."""
+    je, te, fluid = _engines({}, "drop", _pad_rows, **SMALL)
+    pk = torch.tensor(np.asarray(je._initial_packed(fluid)))
+    fixed = (te.b_cell_starts, te._b_grid, te._inert_row)
+    before = tracer.counters.get("kernel.relayout.launches", 0)
+    got = rl.relayout(te.spec, te.cfg, pk, *fixed)
+    want = rl.relayout_plain(te.spec, te.cfg, pk, *fixed)
+    assert tracer.counters.get("kernel.relayout.launches", 0) == before
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    assert torch.equal(got[2], want[2])
+    for f in got[1]._fields:
+        assert torch.equal(getattr(got[1], f), getattr(want[1], f)), f
+    meta = [t.to("meta") for t in (pk, *fixed)]
+    with pytest.raises(ValueError, match="no relayout kernel"):
+        rl.relayout(te.spec, te.cfg, *meta)
+    with pytest.raises(ValueError, match="float32"):
+        rl.relayout(te.spec, te.cfg, pk.double(), *fixed)
+    with pytest.raises(ValueError, match="not contiguous"):
+        rl.relayout(te.spec, te.cfg, pk.T.contiguous().T, *fixed)
+    with pytest.raises(ValueError, match="b_grid"):
+        rl.relayout(te.spec, te.cfg, pk, fixed[0], fixed[1][:-1], fixed[2])
+    with pytest.raises(ValueError, match="inert_row"):
+        rl.relayout(te.spec, te.cfg, pk, *fixed[:2], fixed[2][0])
