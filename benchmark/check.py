@@ -22,7 +22,7 @@ Numbers (each the worst over what was checked):
 * ``vel``: max |d u|, |d v| in m/s after a dispatch;
 * ``rho``: max |d rho| / rho_0 after a dispatch;
 * ``frame``: pixels that differ between the dispatch's frame and the
-  reference's;
+  reference's (none in a headless run, which draws no frame);
 * ``failed`` (added by the harness, limit 0): committed dispatches of the
   window that ended with lost pairs or stale drift the runner did not
   recover, sampled or not.
@@ -76,13 +76,14 @@ def start_numbers(ref: Reference, fluid_xy, g0, primed: dict, walls: tuple) -> d
     return dict(psi=psi, prime_rho=_max(drho) / p.rho0, prime_acc=_max(dacc) / p.g)
 
 
-def reference_outputs(ref: Reference, inp: dict, g_trace, shape: tuple):
+def reference_outputs(ref: Reference, inp: dict, g_trace, shape):
     """The reference's state (x, y, u, v, rho by id) and frame after the K
-    ticks of ``g_trace`` from the input state ``inp`` (x, y, u, v, au, av)."""
+    ticks of ``g_trace`` from the input state ``inp`` (x, y, u, v, au, av);
+    no frame (None) for a headless run, whose ``shape`` is None."""
     ref.load(inp["x"], inp["y"], inp["u"], inp["v"], inp["au"], inp["av"])
     ref.run(g_trace)
     out = dict(x=ref.x, y=ref.y, u=ref.u, v=ref.v, rho=ref.rho)
-    return out, ref.render(*shape)
+    return out, (ref.render(*shape) if shape else None)
 
 
 def _pixels(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -93,17 +94,20 @@ def _pixels(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def dispatch_numbers(inp: dict, out: dict, fb, ref_out: dict, ref_fb, phys) -> dict:
     """One dispatch's state and frame against the reference's, both from
-    the input state ``inp``."""
+    the input state ``inp``; a headless dispatch (``fb`` None) has no
+    ``frame`` number."""
     d = lambda k: out[k].double() - ref_out[k].double()  # noqa: E731
     box = max(phys.width, phys.height)
     gap = _max(torch.cat([d("x"), d("y")]), box)
     moved = _max(torch.cat([ref_out["x"].double() - inp["x"].double(),
                             ref_out["y"].double() - inp["y"].double()]), box)
-    return dict(pos=gap / phys.r,
+    nums = dict(pos=gap / phys.r,
                 step=gap / moved if moved > 0 else (0.0 if gap == 0 else math.inf),
                 vel=_max(torch.cat([d("u"), d("v")]), phys.c),
-                rho=_max(d("rho"), phys.rho0) / phys.rho0,
-                frame=float(_pixels(fb, ref_fb)))
+                rho=_max(d("rho"), phys.rho0) / phys.rho0)
+    if fb is not None:
+        nums["frame"] = float(_pixels(fb, ref_fb))
+    return nums
 
 
 def worst(rows: list) -> dict:

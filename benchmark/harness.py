@@ -64,7 +64,8 @@ class DispatchLog:
     """Wraps the runner's ``_dispatch`` to see every dispatch of the window:
     its ticks, its reduced loss counts, which dispatch's output it started
     from (so that the committed chain is known after reverts), and a seeded
-    sample of whole dispatches (input, gravity, output, frame) for the check.
+    sample of whole dispatches (input, gravity, output, frame or None
+    headless) for the check.
     It holds references only: the port makes new tensors each dispatch."""
 
     def __init__(self, runner, keep: int, seed: int):
@@ -180,25 +181,35 @@ def run_cell(cfg: dict, traffic: dict, metrics: list, readers: dict,
     gravity = make_gravity(traffic, seed, port_gravity, pcfg)
     if traffic["config"] != cfg["name"]:
         raise ValueError(f"the traffic is for {traffic['config']!r}, not {cfg['name']!r}")
-    shape = tuple(traffic["render_shape"])
+    # a render_shape of null is a headless run, as `cli.py run --display none`
+    shape = tuple(traffic["render_shape"]) if traffic["render_shape"] else None
+    view = dict(render=True, render_shape=shape) if shape else dict(render=False)
     k = traffic["steps_per_dispatch"]
     # a chunk's length in sim time: chunk_dispatches dispatches of the K the
-    # runner takes (steps_per_dispatch, or one 60 Hz frame of ticks, rounded
-    # up to the resort period)
-    k0 = k or max(1, int(round(1.0 / (60.0 * pcfg.dt))))
+    # runner takes (steps_per_dispatch, or one 60 Hz frame of ticks, or
+    # headless one 0.1 s report interval, rounded up to the resort period)
+    k0 = k or max(1, int(round((1.0 / 60.0 if shape else 0.1) / pcfg.dt)))
     k_nom = -(-k0 // traffic["resort_every"]) * traffic["resort_every"]
     chunk_s = traffic["chunk_dispatches"] * k_nom * pcfg.dt
     spans = tr.install_spans(port) if trace else contextlib.nullcontext()
     with spans:
         runner = SimRunner(pcfg, fluid, walls_raw, backend="window",
-                           engine_opts={"cap": traffic["cap"]}, render=True,
-                           render_shape=shape, resort_every=traffic["resort_every"],
+                           engine_opts={"cap": traffic["cap"]}, **view,
+                           resort_every=traffic["resort_every"],
                            auto_cap=traffic["auto_cap"], max_cap=traffic["max_cap"],
                            max_resort=traffic["max_resort"] or None, device=dev)
         dlog = DispatchLog(runner, traffic["check"]["dispatches"], seed)
         sink = TimingSink(span=trace)
         # the runner's report lines, as `cli.py run` streams them
         report = io.StringIO()
+
+        def log_report(tag):
+            """The report's event lines (recoveries, the ladder), not its
+            periodic stats, to standard error."""
+            for line in report.getvalue().splitlines():
+                if not line.startswith("sim time"):
+                    log(f"{tag}: {line}", file=sys.stderr)
+
         # set-up: prime, the runner's damped settle (settle_s), then the
         # pre-roll (or one chunk) through the same runner, which builds the
         # kernels and warms every shape of the cell
@@ -225,6 +236,7 @@ def run_cell(cfg: dict, traffic: dict, metrics: list, readers: dict,
                 if time.perf_counter() - t0 >= win:
                     return sim, time.perf_counter() - t0
 
+        log_report("runner (set-up)")
         report.seek(0)
         report.truncate()
         dlog.recording = sink.recording = True
@@ -272,9 +284,7 @@ def run_cell(cfg: dict, traffic: dict, metrics: list, readers: dict,
     gaps = np.diff([0.0] + ends)
     log("chunks (ticks/s): " + " ".join(f"{r.steps / t:.0f}" for r, t in zip(chunks, gaps)),
         file=sys.stderr)
-    for line in report.getvalue().splitlines():
-        if not line.startswith("sim time"):
-            log(f"runner: {line}", file=sys.stderr)
+    log_report("runner")
 
     traced = {}
     if tdata is not None:
@@ -285,7 +295,8 @@ def run_cell(cfg: dict, traffic: dict, metrics: list, readers: dict,
     # program's state is freed before the reference runs
     keep = set(committed)
     picked = [it for it in dlog.sample if it[0] in keep]
-    checks = [dict(inp=program_rows(s_in), g=g, out=program_rows(s_out), fb=fb.clone())
+    checks = [dict(inp=program_rows(s_in), g=g, out=program_rows(s_out),
+                   fb=None if fb is None else fb.clone())
               for _, s_in, g, s_out, fb in picked]
     primed, g0 = program_rows(dlog.primed[0]), dlog.primed[1]
     walls_prog = (runner.boundary.x, runner.boundary.y, runner.boundary.m)

@@ -51,6 +51,15 @@ def _fluid_lattice(cfg: dict, xs: np.ndarray, ys: np.ndarray):
         dist = np.sqrt((dx * dx + dy * dy).astype(np.float32), dtype=np.float32)
         keep = (dist < cfg["drop_radius"]).ravel()
         return gx.ravel()[keep], gy.ravel()[keep]
+    if cfg["scene"] == "dam":
+        # a column from 2 R off the left wall and the floor to fill_x of the
+        # width and fill_y of the height, as the port's
+        # models/scene.py::build_dam_break_scene lays it out
+        gap = r * F32(2.0)
+        x_max, y_max = w * F32(cfg["fill_x"]), h * F32(cfg["fill_y"])
+        keep_x, keep_y = xs[(xs >= gap) & (xs < x_max)], ys[(ys >= gap) & (ys < y_max)]
+        gx, gy = np.meshgrid(keep_x, keep_y, indexing="ij")
+        return gx.ravel(), gy.ravel()
     raise ValueError(f"unknown scene {cfg['scene']!r}")
 
 

@@ -20,20 +20,31 @@ def quick(traffic: dict) -> dict:
     return t
 
 
-def run_cpu(workload: str, seed: int = 2147483711, seconds: float = 0.5,
-            trace: bool = False, control: bool = False, root=ROOT):
-    """One run of a cell on the CPU through the harness (the plain
-    versions of the port's kernels), with the cell's metrics."""
+def run_mix(config: str, traffic: str, metrics=(), seed: int = 2147483711,
+            seconds: float = 0.5, trace: bool = False, control: bool = False, root=ROOT):
+    """One run of a configuration under a traffic mix, found by their names
+    (a mix no cell names yet included), on the CPU through the harness (the
+    plain versions of the port's kernels), reporting the BENCHMARK.json
+    entries ``metrics``."""
     import time
 
     from benchmark import harness
     from benchmark.spec import Spec
 
     spec = Spec(root, root / "benchmark")
-    cell = spec.workload(workload)
     kind = "per_layer" if trace else "end_to_end"
-    metrics = spec.metrics(cell, kind)
     readers = {m["name"]: spec.reader(kind, m["name"]) for m in metrics}
-    return harness.run_cell(spec.config(cell["config"]), quick(spec.traffic(cell["traffic"])),
-                            metrics, readers, seed, seconds, trace, "cpu",
-                            time.perf_counter(), control=control, log=lambda *a, **k: None)
+    return harness.run_cell(spec.config(config), quick(spec.traffic(traffic)), list(metrics),
+                            readers, seed, seconds, trace, "cpu", time.perf_counter(),
+                            control=control, log=lambda *a, **k: None)
+
+
+def run_cpu(workload: str, seed: int = 2147483711, seconds: float = 0.5,
+            trace: bool = False, control: bool = False, root=ROOT):
+    """One run of a cell on the CPU through the harness, with the cell's metrics."""
+    from benchmark.spec import Spec
+
+    spec = Spec(root, root / "benchmark")
+    cell = spec.workload(workload)
+    metrics = spec.metrics(cell, "per_layer" if trace else "end_to_end")
+    return run_mix(cell["config"], cell["traffic"], metrics, seed, seconds, trace, control, root)

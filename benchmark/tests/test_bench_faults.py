@@ -2,15 +2,16 @@
 for each fault the cells can have, and a sound run comes out correct.  The
 run skips the look for a card and drives the rest of a run on the CPU (the
 plain versions of the port's kernels), at the drop cell's size and limits
-with a short window.  The cells run on one chip, so there is no exchange
-between chips to leave out."""
+with a short window, and once on the drop's headless mix, which has no
+frame.  The cells run on one chip, so there is no exchange between chips
+to leave out."""
 
 import pytest
 import torch
 
 from pi_sph_fluid_tpu_torch.io.host_loop import SimRunner
 from pi_sph_fluid_tpu_torch.models.engine_v3 import WindowEngine
-from conftest import run_cpu
+from conftest import run_cpu, run_mix
 
 R = 0.075
 
@@ -80,3 +81,10 @@ def test_a_sound_run_is_correct():
     res = run_cpu("drop_269.still")
     assert res["checked"] >= 1 and res["failed"] == 0
     assert res["correct"] is True, (res["numbers"], res["limits"])
+
+
+def test_a_broken_headless_path_is_not_correct(monkeypatch):
+    _unchanged(monkeypatch)
+    res = run_mix("drop_269", "drop_269.headless")
+    assert res["checked"] >= 1 and "frame" not in res["numbers"]
+    assert res["correct"] is False, res["numbers"]
