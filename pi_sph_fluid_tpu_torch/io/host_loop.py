@@ -414,6 +414,13 @@ class SimRunner:
         # is queued (the reference's tearing-tolerant display contract)
         pending_frame, pending_seq = None, -1
 
+        def lost() -> int:
+            """The ticks a revert throws away: those run since the checkpoint,
+            replays included; counted in runner.ticks_reverted."""
+            ticks = (i - ck_i) * k
+            tracer.count("runner.ticks_reverted", ticks)
+            return ticks
+
         def revert():
             nonlocal sim, i, sim_t, replay_pos, pending_frame, recoveries
             nonlocal clean_streak, t_mono0
@@ -425,6 +432,7 @@ class SimRunner:
             clean_streak = 0
             t_mono0 = time.monotonic() - sim_t
 
+        tracer.count("runner.ticks_reverted", 0)   # 0 on a run without reverts
         i = dispatches = 0
         while i < n_dispatch:
             if g_const is not None:
@@ -461,7 +469,7 @@ class SimRunner:
                         say(f"OVERFLOW in {sorted(cats)} with every starved "
                             f"capacity at its ceiling: continuing with losses")
                         continue
-                    with tracer.span("runner.recover", cause="dd_growth"):
+                    with tracer.span("runner.recover", cause="dd_growth", ticks=lost()):
                         say(f"OVERFLOW in {sorted(cats)}: growing {growing(grow)}, "
                             f"reverting to t={ck_t:.2f}s and replaying")
                         if ck_is_start:
@@ -483,7 +491,7 @@ class SimRunner:
                         say(f"WINDOW OVERFLOW at cap={old_cap} (max-cap "
                             f"reached): continuing with lost pairs")
                         continue
-                    with tracer.span("runner.recover", cause="cap_growth"):
+                    with tracer.span("runner.recover", cause="cap_growth", ticks=lost()):
                         say(f"WINDOW OVERFLOW: cap {old_cap} -> {new_cap}, "
                             f"reverting to t={ck_t:.2f}s and replaying")
                         self._build(cap=new_cap)
@@ -497,7 +505,7 @@ class SimRunner:
                     # resort_every, revert, replay (ends at 1: exact mode has
                     # no carried ticks)
                     new_resort = self._resort // 2
-                    with tracer.span("runner.recover", cause="stale"):
+                    with tracer.span("runner.recover", cause="stale", ticks=lost()):
                         say(f"STALE DRIFT: {reporter.total_stale} particle-ticks "
                             f"past the fringe margin; resort_every {self._resort} "
                             f"-> {new_resort}, reverting to t={ck_t:.2f}s and "

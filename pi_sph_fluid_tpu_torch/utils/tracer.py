@@ -27,7 +27,11 @@ wrappers count their launches here (``kernel.density.launches``,
 kernel launch.  ``kernel.relayout.launches`` is the exception: it counts
 relayouts that went down the relayout kernels (ops/window/relayout.py),
 one a relayout, for all of that relayout's launches (its kernels and the
-sort's).
+sort's).  ``runner.ticks_reverted`` counts the ticks the runner's reverts
+threw away (io/host_loop.py): each revert adds the ticks run since its
+checkpoint, replays included, and gives the same number as the ``ticks``
+attribute of its ``runner.recover`` span; ``SimRunner.run`` sets it up at
+0.
 
 ``tracer.to_chrome(path)`` writes the spans as one Chrome trace-event JSON
 file (Perfetto, chrome://tracing); ``cli.py run --trace-out F.json`` does

@@ -246,3 +246,60 @@ def test_realtime_pacing_keeps_sim_time():
                      steps_per_dispatch=8, realtime=True)
     assert res.steps == 16
     assert res.wall_s >= 16 * CFG.dt
+
+
+@pytest.fixture
+def spans_on():
+    """The process's tracer, on and empty for the test, off and empty after."""
+    tracer.clear()
+    tracer.enable()
+    yield tracer
+    tracer.disable()
+    tracer.clear()
+
+
+def _counted(runner):
+    """Wrap the runner's dispatch to count the ticks it runs."""
+    ticks = []
+    dispatch = runner._dispatch
+
+    def counted(sim, g_trace):
+        ticks.append(len(g_trace))
+        return dispatch(sim, g_trace)
+
+    runner._dispatch = counted
+    return ticks
+
+
+def test_reverts_count_the_ticks_they_throw_away(spans_on):
+    """A dam at r8 with one particle at 60 m/s trips the stale guard: each
+    revert adds the ticks run since its checkpoint to runner.ticks_reverted
+    and gives them as the ticks of its runner.recover span, and together
+    they are the ticks run less the ticks committed."""
+    stream = io.StringIO()
+    runner, _ = _runner("dam", fluid_fn=_fast(60.0), render=False,
+                        resort_every=8, max_resort=8)
+    ticks = _counted(runner)
+    res = runner.run(ConstantGravity(CFG), sim_seconds=0.02, steps_per_dispatch=16,
+                     report_stream=stream, report_every=0.005)
+    assert "STALE DRIFT" in stream.getvalue() and res.recoveries >= 1
+    recovers = [s for s in spans_on.spans if s.name == "runner.recover"]
+    assert len(recovers) == res.recoveries
+    assert {s.attrs["cause"] for s in recovers} == {"stale"}
+    assert all(s.attrs["ticks"] > 0 and s.attrs["ticks"] % 16 == 0 for s in recovers)
+    lost = sum(ticks) - res.steps
+    assert lost > 0
+    assert spans_on.counters["runner.ticks_reverted"] == lost
+    assert sum(s.attrs["ticks"] for s in recovers) == lost
+
+
+def test_a_clean_run_reverts_no_ticks(spans_on):
+    """Without a fast particle the same dam runs clean: the counter reads 0
+    and no runner.recover span opens."""
+    runner, _ = _runner("dam", render=False, resort_every=8, max_resort=8)
+    ticks = _counted(runner)
+    res = runner.run(ConstantGravity(CFG), sim_seconds=0.02, steps_per_dispatch=16,
+                     report_every=0.005)
+    assert res.recoveries == 0 and sum(ticks) == res.steps
+    assert spans_on.counters["runner.ticks_reverted"] == 0
+    assert not [s for s in spans_on.spans if s.name == "runner.recover"]
