@@ -9,12 +9,13 @@ and pushed to a non-blocking sink one dispatch late, and pacing sleeps
 instead of spinning.
 
 Every loss channel stays counted: the render's window overflow folds into
-``neighbor_overflow``; window overflow is answered by elastic cap recovery
-(a 1.5x ladder, revert to the last clean report, replay the logged gravity
-traces); a stale-drift trip halves ``resort_every`` and replays; clean
-report intervals double it up to a ceiling pinned below any period that
-tripped.  Under slab decomposition each capacity the loss names
-(``StepStats.overflow_by``) grows on its own ladder, and a revert goes
+``neighbor_overflow``; overflow is answered by elastic capacity recovery
+(each starved capacity on its 1.5x ladder, revert to the last clean report,
+replay the logged gravity traces); a stale-drift trip halves
+``resort_every`` and replays; clean report intervals double it up to a
+ceiling pinned below any period that tripped.  The single engine's one
+capacity is its window cap; under slab decomposition each capacity the loss
+names (``StepStats.overflow_by``) grows on its own ladder, and a revert goes
 through the domain's export and init, since the state's shapes change with
 the capacities.
 """
@@ -39,12 +40,38 @@ from ..render.metaballs_window import WindowRenderer
 from ..utils.stats import StatsReporter
 from ..utils.tracer import tracer
 
-__all__ = ["SimRunner", "RunResult"]
+__all__ = ["SimRunner", "RunResult", "grow_capacities"]
 
 
 def _ladder_up(x: int, q: int) -> int:
     """One step of the capacity ladder: 1.5x rounded up to the q-quantum."""
     return -(-(x * 3 // 2) // q) * q
+
+
+def grow_capacities(caps: dict, cats, max_cap: int, n_fluid: int) -> dict:
+    """The growth of the starved capacities (``cats``, names of
+    OVERFLOW_CATEGORIES), each on its own 1.5x ladder with a ceiling
+    (`host_loop.py:144-207`).  ``caps`` holds the backend's capacities: the
+    window ``cap`` (quantum 128, ceiling ``max_cap``) alone for the single
+    engine; the slab domain adds ``halo_cap`` and ``mig_cap`` (quantum 64,
+    ceiling the slab cap rounded to 64: their rows are a slab's) and
+    ``slab_cap`` (quantum 128, ceiling the whole fluid plus 64, rounded to
+    128).  A category with no capacity in ``caps``, or at its ceiling, is
+    left out, so repeated recovery ends: an empty proposal means the run
+    goes on with counted losses."""
+    ladders = {"window": ("cap", 128, max_cap)}
+    if "slab_cap" in caps:
+        edge = -(-caps["slab_cap"] // 64) * 64
+        ladders.update(halo=("halo_cap", 64, edge), mig=("mig_cap", 64, edge),
+                       slab=("slab_cap", 128, -(-(n_fluid + 64) // 128) * 128))
+    grow = {}
+    for cat in OVERFLOW_CATEGORIES:
+        if cat in cats and cat in ladders:
+            key, q, ceiling = ladders[cat]
+            new = min(_ladder_up(caps[key], q), ceiling)
+            if new > caps[key]:
+                grow[key] = new
+    return grow
 
 
 def _saturating_sum(a: torch.Tensor) -> torch.Tensor:
@@ -65,6 +92,15 @@ def _reduce(st):
         neighbor_overflow=_saturating_sum(st.neighbor_overflow),
         overflow_by=by,
         stale=None if st.stale is None else _saturating_sum(st.stale))
+
+
+def _no_frame(multi):
+    """A ``(sim, stats)`` multi-step as ``(sim, stats, None)``: its backend
+    renders the state itself, from no relayout frame."""
+    def with_none(sim, g_trace):
+        return (*multi(sim, g_trace), None)
+
+    return with_none
 
 
 def _show(sink, frame, seq: int):
@@ -144,87 +180,45 @@ class SimRunner:
         self._raise_after = max(1, int(raise_after))
         self._resort_ceiling = max_resort or 0
         self._engine_opts = dict(engine_opts or {})
-        self.domain = None
-        if backend == "window-dd":
-            self._build_dd()
-        elif window:
+        self.engine = self.domain = None
+        if window:
             self._build()
         else:
             self._build_reference()
 
     # ------------------------------------------------------------------
-    def _next_cap(self, old: int) -> int:
-        """Escalation ladder: 1.5x rounded up to the 128-lane quantum,
-        bounded by max_cap."""
-        return min(_ladder_up(old, 128), self.max_cap)
-
-    def _build(self, cap: int | None = None):
-        """(Re)build the engine, its multi-step and the renderer.  Called at
-        construction and by recovery with a larger ``cap`` (kept for later
-        rebuilds) or after a change of resort_every.  n_layout does not
-        depend on cap, so a checkpointed PackedSim steps under the new
-        engine unchanged."""
-        if cap is not None:
-            self._engine_opts["cap"] = cap
-        with tracer.span("runner.build", cap=self._engine_opts.get("cap"),
-                         resort=self._resort):
-            self.engine = WindowEngine(self.cfg, self.boundary, self._bgrid,
-                                       self.n_fluid, self.device, **self._engine_opts)
-            self._multi = self.engine.make_multi_step(resort_every=self._resort,
-                                                      return_frame=self._render)
-            self._settle_multi = self.engine.make_multi_step(damping=0.995)
-            self._renderer = (WindowRenderer(self.engine, *self._render_shape)
-                              .render_from_frame if self._render else None)
-
-    def _dd_growth(self, cats: set) -> dict:
-        """The capacity growth for the starved categories (names of
-        OVERFLOW_CATEGORIES), each on its own 1.5x ladder with a ceiling
-        (`host_loop.py:175-207`): window at max_cap, halo and migration at
-        the slab cap (their rows are a slab's), slab at the whole fluid.  A
-        category at its ceiling is left out, so repeated recovery ends: an
-        empty proposal means the run goes on with counted losses."""
-        d = self.domain
-        grow = {}
-        if "window" in cats:
-            nc = self._next_cap(d.spec.cap)
-            if nc > d.spec.cap:
-                grow["cap"] = nc
-        edge_bound = -(-d.slab_cap // 64) * 64
-        if "halo" in cats:
-            nh = min(_ladder_up(d.halo_cap, 64), edge_bound)
-            if nh > d.halo_cap:
-                grow["halo_cap"] = nh
-        if "mig" in cats:
-            nm = min(_ladder_up(d.mig_cap, 64), edge_bound)
-            if nm > d.mig_cap:
-                grow["mig_cap"] = nm
-        if "slab" in cats:
-            ns = min(_ladder_up(d.slab_cap, 128),
-                     -(-(self.n_fluid + 64) // 128) * 128)
-            if ns > d.slab_cap:
-                grow["slab_cap"] = ns
-        return grow
-
-    def _build_dd(self, grow: dict | None = None):
-        """(Re)build the slab decomposition (`host_loop.py:209-248`): a
-        ``WindowDomain`` on the runner's device over ``DistComm(slabs)``
-        when a process group is up (parallel/launch.py; this process holds
-        its share of the slabs) and over ``LocalComm(slabs)`` otherwise,
-        its sticky multi-step, a damped exact settle multi-step and the
-        per-slab renderer.  ``grow`` (from _dd_growth) overrides capacities
-        and is kept for later rebuilds; every process rebuilds alike, since
-        every recovery decision is taken on stats reduced over all slabs."""
+    def _build(self, grow: dict | None = None):
+        """(Re)build the window backend, its sticky multi-step
+        ``(sim, stats, frame)``, a damped exact settle multi-step and the
+        renderer ``(sim, frame) -> (framebuffer, overflow)``: at
+        construction, after a change of resort_every, and with the ``grow``
+        of grow_capacities (kept in ``engine_opts`` for later rebuilds).
+        "window" builds a ``WindowEngine`` (n_layout does not depend on cap,
+        so a checkpointed PackedSim steps under the new engine unchanged);
+        "window-dd" a ``WindowDomain`` (`host_loop.py:209-248`) over
+        ``DistComm(slabs)`` when a process group is up (this process holds
+        its share of the slabs), else ``LocalComm(slabs)``; every process
+        rebuilds alike, since every recovery decision is taken on stats
+        reduced over all slabs."""
         if grow:
             self._engine_opts.update(grow)
         opts = dict(self._engine_opts)
-        slabs = opts.pop("slabs", None) or 1
-        self.engine = None
         with tracer.span("runner.build", cap=opts.get("cap"), resort=self._resort):
+            if self.backend == "window":
+                self.engine = WindowEngine(self.cfg, self.boundary, self._bgrid,
+                                           self.n_fluid, self.device, **opts)
+                self._multi = self.engine.make_multi_step(resort_every=self._resort,
+                                                          return_frame=True)
+                self._settle_multi = self.engine.make_multi_step(damping=0.995)
+                self._renderer = (WindowRenderer(self.engine, *self._render_shape)
+                                  .render_from_frame if self._render else None)
+                return
+            slabs = opts.pop("slabs", None) or 1
             comm = DistComm(slabs) if is_multiprocess() else LocalComm(slabs)
             self.domain = WindowDomain(self.cfg, self.boundary, self._bgrid,
                                        self.n_fluid, comm, self.device, **opts)
-            self._multi = self._wrap_dd(self.domain.make_multi_step(
-                resort_every=self._resort))
+            self._multi = _no_frame(self._wrap_dd(self.domain.make_multi_step(
+                resort_every=self._resort)))
             self._settle_multi = self._wrap_dd(self.domain.make_multi_step(damping=0.995))
             self._renderer = None
             if self._render:
@@ -250,28 +244,51 @@ class SimRunner:
 
         return multi
 
-    def _rebuild(self):
-        """Rebuild the backend's pipeline after a change of resort_every."""
-        if self.domain is not None:
-            self._build_dd()
-        else:
-            self._build()
-
     def _build_reference(self):
         """The jnp-oracle pipeline (`host_loop.py:133-138,298-300`): prime,
         multi-step and damped settle of models/simulation.py, and the oracle
         renderer on the state's fluid view, which loses no pixel pairs
         (overflow 0)."""
-        self.engine = None
         cfg, b, bg = self.cfg, self.boundary, self._bgrid
         with tracer.span("runner.build", cap=None, resort=self._resort):
-            self._multi = make_multi_step(cfg, b, bg)
+            self._multi = _no_frame(make_multi_step(cfg, b, bg))
             self._settle_multi = make_multi_step(cfg, b, bg, damping=0.995)
             self._renderer = None
             if self._render:
                 render = make_renderer(cfg, *self._render_shape)
                 zero = torch.zeros((), dtype=torch.int32, device=self.device)
                 self._renderer = lambda sim, frame: (render(sim.fluid), zero)
+
+    def _caps(self) -> dict:
+        """The capacities recovery can grow (grow_capacities' ``caps``)."""
+        if self.domain is None:
+            return {"cap": self.engine.spec.cap}
+        d = self.domain
+        return dict(cap=d.spec.cap, halo_cap=d.halo_cap, mig_cap=d.mig_cap,
+                    slab_cap=d.slab_cap)
+
+    def _overflow_line(self, cats, caps: dict, grow: dict, at: float | None) -> str:
+        """What the runner says of an overflow, in the JAX runner's words:
+        ``at`` is the checkpoint time a revert goes back to, None in the
+        settle, which restarts; an empty ``grow`` continues with losses.
+        The single engine names its window cap, the slab domain the
+        categories it blames and each capacity it grows."""
+        then = ("restarting settle" if at is None
+                else f"reverting to t={at:.2f}s and replaying")
+        if self.domain is None:
+            head = "WINDOW OVERFLOW" + (" during settle" if at is None else "")
+            if not grow:
+                return (f"{head} at cap={caps['cap']} (max-cap reached): "
+                        f"continuing with lost pairs")
+            return f"{head}: cap {caps['cap']} -> {grow['cap']}, {then}"
+        if at is None:
+            head, every = "OVERFLOW during settle", "every capacity"
+        else:
+            head, every = f"OVERFLOW in {sorted(cats)}", "every starved capacity"
+        if not grow:
+            return f"{head} with {every} at its ceiling: continuing with losses"
+        growing = ", ".join(f"{key} -> {val}" for key, val in sorted(grow.items()))
+        return f"{head}: growing {growing}, {then}"
 
     @tracer.traced("runner.prime")
     def _prime(self, g):
@@ -287,13 +304,9 @@ class SimRunner:
         itself); stats reduced on the device, render overflow folded in.
         One span, under a new dispatch number."""
         with tracer.span("runner.dispatch", dispatch=tracer.next_dispatch()):
+            sim, st, frame = self._multi(sim, g_trace)
             if self._renderer is None:
-                sim, st = self._multi(sim, g_trace)
                 return sim, _reduce(st), None
-            if self.engine is None:
-                (sim, st), frame = self._multi(sim, g_trace), None
-            else:
-                sim, st, frame = self._multi(sim, g_trace)
             fb, render_overflow = self._renderer(sim, frame)
             st = _reduce(st)
             st = st._replace(neighbor_overflow=st.neighbor_overflow + render_overflow)
@@ -353,9 +366,6 @@ class SimRunner:
         use_ac = self.auto_cap
         recoveries = 0
 
-        def growing(grow):
-            return ", ".join(f"{key} -> {val}" for key, val in sorted(grow.items()))
-
         def start_recovered():
             """start() with settle-overflow recovery: grow the capacities on
             their ladders and redo prime + settle until the pre-roll is
@@ -364,30 +374,15 @@ class SimRunner:
             nonlocal use_ac, recoveries
             sim, settle_ov = start()
             while use_ac and settle_ov > 0:
-                if self.domain is not None:
-                    # the settle drains only the total: grow every capacity
-                    grow = self._dd_growth(set(OVERFLOW_CATEGORIES))
-                    if not grow:
-                        use_ac = False
-                        say("OVERFLOW during settle with every capacity at its "
-                            "ceiling: continuing with losses")
-                        break
-                    say(f"OVERFLOW during settle: growing {growing(grow)}, "
-                        f"restarting settle")
-                    self._build_dd(grow)
-                    recoveries += 1
-                    sim, settle_ov = start()
-                    continue
-                old_cap = self.engine.spec.cap
-                new_cap = self._next_cap(old_cap)
-                if new_cap <= old_cap:
+                # the settle drains only the total: grow every capacity
+                caps = self._caps()
+                grow = grow_capacities(caps, OVERFLOW_CATEGORIES, self.max_cap,
+                                       self.n_fluid)
+                say(self._overflow_line(OVERFLOW_CATEGORIES, caps, grow, None))
+                if not grow:
                     use_ac = False
-                    say(f"WINDOW OVERFLOW during settle at cap={old_cap} "
-                        f"(max-cap reached): continuing with lost pairs")
                     break
-                say(f"WINDOW OVERFLOW during settle: cap {old_cap} -> "
-                    f"{new_cap}, restarting settle")
-                self._build(cap=new_cap)
+                self._build(grow)
                 recoveries += 1
                 sim, settle_ov = start()
             return sim
@@ -456,47 +451,33 @@ class SimRunner:
             if use_ac and (line is not None or i == n_dispatch):
                 # the checks ride the report cadence (plus end of run), where
                 # the reporter drains anyway: no extra host syncs
-                if reporter.total_overflow > 0 and self.domain is not None:
+                if reporter.total_overflow > 0:
                     # grow exactly the capacities the attribution names; a
-                    # scream with no capacity loss (non-finite rows, lost
-                    # particles) names none, so grow them all
+                    # loss with no attribution (the single engine, the
+                    # render, non-finite rows, lost particles) names none,
+                    # so grow them all
                     by = reporter.total_overflow_by
                     cats = (set(OVERFLOW_CATEGORIES) if by is None or int(by.sum()) == 0
                             else {c for c, n in zip(OVERFLOW_CATEGORIES, by) if n > 0})
-                    grow = self._dd_growth(cats)
+                    caps = self._caps()
+                    grow = grow_capacities(caps, cats, self.max_cap, self.n_fluid)
                     if not grow:
                         use_ac = False
-                        say(f"OVERFLOW in {sorted(cats)} with every starved "
-                            f"capacity at its ceiling: continuing with losses")
+                        say(self._overflow_line(cats, caps, grow, ck_t))
                         continue
-                    with tracer.span("runner.recover", cause="dd_growth", ticks=lost()):
-                        say(f"OVERFLOW in {sorted(cats)}: growing {growing(grow)}, "
-                            f"reverting to t={ck_t:.2f}s and replaying")
+                    cause = "dd_growth" if "slab_cap" in caps else "cap_growth"
+                    with tracer.span("runner.recover", cause=cause, ticks=lost()):
+                        say(self._overflow_line(cats, caps, grow, ck_t))
+                        # the slab arrays change shape with the capacities:
+                        # a mid-run checkpoint goes through the lossless export
+                        ck_export = (self.domain.export(ck_sim)
+                                     if self.domain is not None and not ck_is_start
+                                     else None)
+                        self._build(grow)
                         if ck_is_start:
-                            self._build_dd(grow)
                             ck_sim = start_recovered()
-                        else:
-                            # the slab arrays change shape with the capacities:
-                            # the checkpoint goes through the lossless export
-                            ck_export = self.domain.export(ck_sim)
-                            self._build_dd(grow)
+                        elif ck_export is not None:
                             ck_sim = self.domain.init(*ck_export)
-                        revert()
-                    continue
-                if reporter.total_overflow > 0:
-                    old_cap = self.engine.spec.cap
-                    new_cap = self._next_cap(old_cap)
-                    if new_cap <= old_cap:
-                        use_ac = False
-                        say(f"WINDOW OVERFLOW at cap={old_cap} (max-cap "
-                            f"reached): continuing with lost pairs")
-                        continue
-                    with tracer.span("runner.recover", cause="cap_growth", ticks=lost()):
-                        say(f"WINDOW OVERFLOW: cap {old_cap} -> {new_cap}, "
-                            f"reverting to t={ck_t:.2f}s and replaying")
-                        self._build(cap=new_cap)
-                        if ck_is_start:
-                            ck_sim = start_recovered()
                         revert()
                     continue
                 if reporter.total_stale > 0 and self._resort > 1:
@@ -513,7 +494,7 @@ class SimRunner:
                         self._resort = new_resort
                         # a period that tripped is never re-entered by the ladder
                         self._resort_ceiling = min(self._resort_ceiling, new_resort)
-                        self._rebuild()
+                        self._build()
                         if ck_is_start:
                             ck_sim = start_recovered()
                         revert()
@@ -538,7 +519,7 @@ class SimRunner:
                                 f"resort_every {self._resort} -> {new_r}")
                             self._resort = new_r
                             clean_streak = 0
-                            self._rebuild()
+                            self._build()
             if realtime:
                 # pacing to the sim-time deadline (the reference's REALTIME
                 # spin-wait, `pi_sph_fluid.c:694-701`, as sleep + spin)

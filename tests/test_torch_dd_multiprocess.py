@@ -25,6 +25,11 @@ TIMEOUT = 240
 # what the runner says when it recovers or changes its sticky period
 RECOVERY = ("OVERFLOW", "WINDOW OVERFLOW", "STALE DRIFT:", "RESORT LADDER")
 
+# Each script ends by destroying its process group, as cli.py and the
+# worker do: a gloo group left to interpreter exit is torn down after
+# Python's last frame, and under load that teardown now and then aborts the
+# process ("terminate called without an active exception", exit -6) after
+# its results are written.
 COMM_SCRIPT = """
 import sys
 import numpy as np, torch
@@ -53,11 +58,13 @@ except ValueError:
     res["odd_refused"] = np.ones(1)
 res["staged"] = np.asarray(comm.staged_bytes)
 np.savez(out, **res)
+torch.distributed.destroy_process_group()
 """
 
 ORACLE_SCRIPT = """
 import sys
 import numpy as np
+import torch
 import pi_sph_fluid_tpu_torch as T
 from pi_sph_fluid_tpu_torch.parallel import DistComm, DomainDecomposition
 from pi_sph_fluid_tpu_torch.parallel.launch import init_distributed
@@ -74,6 +81,7 @@ for _ in range(3):
 fl = dd.gather(state)
 np.savez(out, n_valid=int(st["n_valid"]), overflow=int(st["overflow"]),
          **{f: getattr(fl, f).numpy() for f in type(fl)._fields})
+torch.distributed.destroy_process_group()
 """
 
 

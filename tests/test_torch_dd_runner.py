@@ -20,6 +20,7 @@ import pi_sph_fluid_tpu_torch as T
 from pi_sph_fluid_tpu_torch import cli, convert
 from pi_sph_fluid_tpu_torch.io.display import FileSink
 from pi_sph_fluid_tpu_torch.io.gravity import ConstantGravity
+from pi_sph_fluid_tpu_torch.io.host_loop import grow_capacities
 from pi_sph_fluid_tpu_torch.models.simulation import OVERFLOW_CATEGORIES, StepStats
 from pi_sph_fluid_tpu_torch.parallel import domain_window
 from pi_sph_fluid_tpu_torch.render.metaballs import make_renderer
@@ -175,36 +176,22 @@ def ladder_runner():
 
 def test_growth_ladders_reach_a_ceiling(ladder_runner):
     """test_recovery_termination.py:39-77: growing every capacity from the
-    initial ones reaches the empty proposal in finitely many rounds, with
-    halo and migration at the slab bound and never beyond."""
+    domain's initial ones reaches the empty proposal in finitely many
+    rounds, with halo and migration at the slab bound and never beyond."""
     runner = ladder_runner
     cats = set(OVERFLOW_CATEGORIES)
-    caps = _caps(runner)
-
-    class FakeDomain:  # _dd_growth reads only these four attributes
-        class spec:
-            cap = None
-        halo_cap = mig_cap = slab_cap = None
-
-    d = FakeDomain()
+    caps = runner._caps()
+    assert caps == _caps(runner)
     rounds = 0
-    real = runner.domain
-    try:
-        while True:
-            d.spec.cap = caps["cap"]
-            d.halo_cap, d.mig_cap, d.slab_cap = (caps["halo_cap"], caps["mig_cap"],
-                                                 caps["slab_cap"])
-            runner.domain = d
-            grow = runner._dd_growth(cats)
-            if not grow:
-                break
-            for k, v in grow.items():
-                assert v > caps[k], f"{k} proposal {v} did not grow past {caps[k]}"
-            caps.update(grow)
-            rounds += 1
-            assert rounds < 64, f"growth never terminated: {caps}"
-    finally:
-        runner.domain = real
+    while True:
+        grow = grow_capacities(caps, cats, runner.max_cap, runner.n_fluid)
+        if not grow:
+            break
+        for k, v in grow.items():
+            assert v > caps[k], f"{k} proposal {v} did not grow past {caps[k]}"
+        caps.update(grow)
+        rounds += 1
+        assert rounds < 64, f"growth never terminated: {caps}"
     slab_bound = -(-caps["slab_cap"] // 64) * 64
     assert caps["cap"] <= 256
     assert caps["halo_cap"] <= slab_bound and caps["mig_cap"] <= slab_bound

@@ -13,6 +13,8 @@ import torch
 import pi_sph_fluid_tpu_torch as T
 from pi_sph_fluid_tpu_torch.io.display import FileSink, PngSink
 from pi_sph_fluid_tpu_torch.io.gravity import ConstantGravity, RotatingGravity
+from pi_sph_fluid_tpu_torch.io.host_loop import grow_capacities
+from pi_sph_fluid_tpu_torch.models.simulation import OVERFLOW_CATEGORIES
 from pi_sph_fluid_tpu_torch.utils.tracer import tracer
 
 torch.set_num_threads(1)
@@ -172,9 +174,28 @@ def test_autocap_recovery_with_resume():
 
 
 def test_next_cap_ladder():
+    """The single engine's one capacity on the one ladder: 1.5x rounded up
+    to the 128-lane quantum, bounded by max_cap, then no proposal."""
     runner, _ = _runner(engine_opts=dict(OV), render=False, max_cap=1024)
-    assert [runner._next_cap(c) for c in (128, 256, 384, 512, 896)] == \
-        [256, 384, 640, 768, 1024]
+    assert runner._caps() == {"cap": 128}
+    window = {"window"}
+    assert [grow_capacities({"cap": c}, window, runner.max_cap, runner.n_fluid)["cap"]
+            for c in (128, 256, 384, 512, 896)] == [256, 384, 640, 768, 1024]
+    assert grow_capacities({"cap": 1024}, window, runner.max_cap, runner.n_fluid) == {}
+
+
+@pytest.mark.parametrize("cats", [{"window"}, {"halo"}, {"mig", "slab"},
+                                  set(OVERFLOW_CATEGORIES)],
+                         ids=["window", "halo", "mig_slab", "all"])
+def test_single_engine_grows_only_its_cap(cats):
+    """Whatever categories are starved, the single engine's capacities
+    ({"cap"} alone) grow only ``cap``: by one rung when the window is
+    starved, not at all otherwise, and never past max_cap."""
+    for cap in (128, 896, 1024):
+        grow = grow_capacities({"cap": cap}, cats, 1024, 269)
+        assert set(grow) <= {"cap"}
+        want = min(-(-(cap * 3 // 2) // 128) * 128, 1024)
+        assert grow == ({"cap": want} if "window" in cats and want > cap else {})
 
 
 def test_render_shape_plumbs_to_renderer_and_sinks(tmp_path):
@@ -303,3 +324,24 @@ def test_a_clean_run_reverts_no_ticks(spans_on):
     assert res.recoveries == 0 and sum(ticks) == res.steps
     assert spans_on.counters["runner.ticks_reverted"] == 0
     assert not [s for s in spans_on.spans if s.name == "runner.recover"]
+
+
+@pytest.mark.parametrize("backend,opts,cause", [
+    ("window", dict(OV), "cap_growth"),
+    ("window-dd", dict(OV, slabs=2), "dd_growth"),
+], ids=["engine", "domain"])
+def test_growth_reverts_name_their_backend(spans_on, backend, opts, cause):
+    """A forced window overflow on the dam: each growth revert of the one
+    recovery path opens a runner.recover span, named cap_growth on the
+    single engine and dd_growth on the slab domain, with the ticks it threw
+    away, and the run ends clean."""
+    fluid, braw = T.build_dam_break_scene(CFG, "cpu")
+    runner = T.SimRunner(CFG, fluid, braw, backend=backend, engine_opts=opts,
+                         render=False, max_cap=512, device="cpu")
+    res = runner.run(ConstantGravity(CFG), sim_seconds=8 * CFG.dt, steps_per_dispatch=4)
+    recovers = [s for s in spans_on.spans if s.name == "runner.recover"]
+    assert res.recoveries >= 1 and len(recovers) == res.recoveries
+    assert {s.attrs["cause"] for s in recovers} == {cause}
+    assert all(s.attrs["ticks"] > 0 for s in recovers)
+    assert spans_on.counters["runner.ticks_reverted"] == sum(s.attrs["ticks"] for s in recovers)
+    assert res.reporter.total_overflow == 0
