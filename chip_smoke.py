@@ -177,7 +177,7 @@ from pi_sph_fluid_tpu_torch.utils.profiling import (bound, call_device_ms,  # no
                                                     covered, device_breakdown,
                                                     device_memory, event_ms,
                                                     host_us, kernel_device_ms,
-                                                    pool_engine)
+                                                    pairs_in_reach, pool_engine)
 from pi_sph_fluid_tpu_torch.utils.tracer import tracer  # noqa: E402
 
 G = (0.0, -9.81)
@@ -342,27 +342,6 @@ def _field_bound(spec, n_src: int, grid, span_idx) -> dict:
                 **bound(nbytes, spec.qb * lanes * FIELD_FLOPS))
 
 
-def _pairs_in_reach(pk, b_geo, spans, cfg, spec) -> int:
-    """(query, lane) pairs of these inputs whose candidate lies within the
-    support radius 2H of the query, r^2 < (2H)^2 in float32: the lanes whose
-    term is not 0.  Counted over the lanes the kernels compute (the plain
-    versions' own lane table), in the plain versions' chunks of blocks."""
-    n_blocks, qb = spec.n_layout // spec.qb, spec.qb
-    xy = torch.cat([pk[:, 0:2], b_geo[:, 0:2]])
-    reach2 = (2.0 * cfg.h) ** 2
-    step, pairs = wk._chunk(spec), 0
-    for b0 in range(0, n_blocks, step):
-        b1 = min(b0 + step, n_blocks)
-        idx, valid = wk._span_lanes(spans, b0, b1, spec.cap, spec.n_layout,
-                                    b_geo.shape[0])
-        cand = xy[idx]                                      # (nb, lanes, 2)
-        q = pk[b0 * qb:b1 * qb, 0:2].reshape(b1 - b0, qb, 1, 2)
-        d = q - cand[:, None]
-        near = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) < reach2
-        pairs += int((near & valid[:, None, :]).sum())
-    return pairs
-
-
 def _span_bound(name: str, spec, spans, n_bnd: int, in_reach: int) -> dict:
     """The bound of a span-fed kernel (density, forces) for these inputs:
     bytes (every query row's inputs and outputs, the span table, each
@@ -371,7 +350,7 @@ def _span_bound(name: str, spec, spans, n_bnd: int, in_reach: int) -> dict:
     pair-lane operations over the float32 rate.  Lanes are sum min(sum of
     span lengths, cap), each span clamped into its array as the kernels
     clamp it; the distinct candidate rows are counted over the spans.
-    ``in_reach`` of the qb x lanes pairs (_pairs_in_reach) take the
+    ``in_reach`` of the qb x lanes pairs (pairs_in_reach) take the
     kernel's full operation count; the others take ``far_flops`` where the
     kernel has one (forces: a lane out of reach adds exactly 0 and needs
     only the distance test), else the full count too (density computes
@@ -485,7 +464,7 @@ def compare_physics(eng, fluid, squeeze: float = 1.0) -> dict:
     pk, ctx, ov = eng._relayout(eng._initial_packed(fluid))
     assert int(ov) == 0, f"relayout overflow {int(ov)}"
     n_bnd = eng._b_geo_d.shape[0]
-    in_reach = _pairs_in_reach(pk, eng._b_geo_d, ctx.spans, cfg, spec)
+    in_reach = pairs_in_reach(pk, eng._b_geo_d, ctx.spans, cfg, spec)
     h = hold_physics(eng, pk, ctx, dense=squeeze != 1.0)
     d_args, f_args = h["d_args"], h["f_args"]
     out = {

@@ -42,15 +42,22 @@
 //
 // Lanes out of reach: the forces kernel spends ~80 machine operations on a
 // lane, and about five lanes in six lie outside the query's support (85% of
-// the query-lane pairs of the 100k pool), where the lane's term is exactly 0.  A thread therefore runs ahead over its lanes
-// with the cheap part alone (dx, dy, r^2 against reach2()) and does the full
-// arithmetic, unchanged, only on lanes in reach; the threads of a warp meet
-// again for it.  A non-finite r^2 counts as in reach, so a dead position still
-// poisons the sums it always poisoned.  This is the one place where the
-// kernel departs from the TPU kernel and from the plain version, which
-// compute NaN * 0 on such a lane: a far lane's non-finite cp, re or velocity
-// does not reach the queries it is out of reach of (its own row is
-// non-finite, which the stats scream counts).  The density kernel's full lane
+// the query-lane pairs of the 100k pool), where the lane's term is exactly 0.
+// A thread therefore first tests all its lanes of a staged chunk with the
+// cheap part alone (dx, dy, r^2 against reach2()), FORCES_U at once, into a
+// bit mask of the lanes in reach, and then does the full arithmetic,
+// unchanged, only on those.  Each lane's test and each lane's full term is
+// one dependent chain (a shared load, then the sqrt and the division), which
+// the SM's warps cannot hide when a thread has one lane in flight; so the
+// tests run as FORCES_U independent chains and the lanes in reach two at a
+// time, two chains in flight, their terms still added in lane order: the
+// sums are bitwise those of one lane at a time.  Walking a mask, the threads
+// of a warp meet at every pair.  A non-finite r^2 counts as in reach, so a
+// dead position still poisons the sums it always poisoned.  This is the one
+// place where the kernel departs from the TPU kernel and from the plain
+// version, which compute NaN * 0 on such a lane: a far lane's non-finite cp,
+// re or velocity does not reach the queries it is out of reach of (its own
+// row is non-finite, which the stats scream counts).  The density kernel's full lane
 // is ~20 machine operations and the same split made it slower (measured on
 // an H100), so it computes every lane.
 //
@@ -76,6 +83,7 @@
 // measurement on an H100 80GB HBM3 at 700 W; no caller's parameter.
 constexpr int DENSITY_G = 2, DENSITY_NQB = 2;
 constexpr int FORCES_G = 4, FORCES_NQB = 2;
+constexpr int FORCES_U = 8;       // lanes a forces thread tests for reach at once
 constexpr int FIELD_G = 16, FIELD_NQB = 1;
 constexpr int FIELD_CHUNK = 512;  // lanes the field kernel stages at once
 
@@ -274,8 +282,8 @@ __global__ void density_window_kernel(
 // latency and the SM's operation rate; the same thread mapping, with the
 // staged rows split into two planes ([x, y, u, v] and [m~, cp, re, a]) so that
 // a group's two 16-byte reads a lane are each contiguous, the full arithmetic
-// only on lanes in reach (see "Lanes out of reach" above), and the two
-// viscosity divisions fused into one.
+// only on lanes in reach, several lanes in flight a thread (see "Lanes out of
+// reach" above), and the two viscosity divisions fused into one.
 template <int G, int NQB>
 __global__ void forces_window_kernel(
     const float4* __restrict__ q, const float4* __restrict__ geo8,
@@ -309,6 +317,8 @@ __global__ void forces_window_kernel(
   const float q_press = d1.y;
   const float cut2 = reach2(half_inv_h);
   float ax = 0.f, ay = 0.f;
+  static_assert(CHUNK / G <= 64 && (CHUNK / G) % FORCES_U == 0,
+                "a thread's lanes of a chunk are the bits of one 64-bit mask");
   for (int c0 = 0; __syncthreads_or(c0 < n); c0 += CHUNK) {
     const int c1 = min(n, c0 + CHUNK);
     int p = 0;
@@ -326,18 +336,31 @@ __global__ void forces_window_kernel(
     }
     __syncthreads();
     const int m = c1 - c0;
-    for (int j = at.g;; j += G) {
-      float4 c0v;  // x, y, u, v
-      float dx, dy, r2;
-      for (; j < m; j += G) {  // on to the thread's next lane in reach
-        c0v = cand_a[j];
-        dx = q0.x - c0v.x;
-        dy = q0.y - c0v.y;
-        r2 = dx * dx + dy * dy;
-        if (!(r2 >= cut2)) break;
+    // The thread's lanes of the chunk are j = g + k G, k < CHUNK / G; bit k
+    // of `mask` says lane j is in reach.  FORCES_U lanes are tested at once,
+    // as independent chains.
+    unsigned long long mask = 0ull;
+    for (int k0 = 0; at.g + k0 * G < m; k0 += FORCES_U) {
+      unsigned bits = 0u;
+#pragma unroll
+      for (int u = 0; u < FORCES_U; ++u) {
+        const int j = at.g + (k0 + u) * G;
+        if (j < m) {
+          const float2 xy = *reinterpret_cast<const float2*>(cand_a + j);
+          const float dx = q0.x - xy.x;
+          const float dy = q0.y - xy.y;
+          if (!(dx * dx + dy * dy >= cut2)) bits |= 1u << u;
+        }
       }
-      if (j >= m) break;
+      mask |= (unsigned long long)bits << k0;
+    }
+    // The full arithmetic of lane j in reach: its coefficient, and dx, dy.
+    auto term = [&](int j, float& dx, float& dy) {
+      const float4 c0v = cand_a[j];  // x, y, u, v
       const float4 c1v = cand_b[j];  // m~, cp, re, a
+      dx = q0.x - c0v.x;
+      dy = q0.y - c0v.y;
+      const float r2 = dx * dx + dy * dy;
       const float du = q0.z - c0v.z;
       const float dv = q0.w - c0v.w;
       const float r = sqrtf(r2);
@@ -352,9 +375,25 @@ __global__ void forces_window_kernel(
       const float denom = c1v.w * q_rho + c1v.z;
       const float den = (r2 + eps_h2) * denom;
       const float visc = (nach * min0(xy_uv)) / den;
-      const float coef = c1v.x * (press + artif + visc) * t13;
-      ax += coef * dx;
-      ay += coef * dy;
+      return c1v.x * (press + artif + visc) * t13;
+    };
+    // Two lanes in reach at a time, both chains in flight, their terms added
+    // in lane order; a thread's last odd lane is computed twice, added once.
+    while (mask) {
+      const int ka = __ffsll(mask) - 1;
+      mask &= mask - 1;
+      const bool two = mask != 0ull;
+      const int kb = two ? __ffsll(mask) - 1 : ka;
+      mask &= mask - 1;
+      float dxa, dya, dxb, dyb;
+      const float ca = term(at.g + ka * G, dxa, dya);
+      const float cb = term(at.g + kb * G, dxb, dyb);
+      ax += ca * dxa;
+      ay += ca * dya;
+      if (two) {
+        ax += cb * dxb;
+        ay += cb * dyb;
+      }
     }
   }
   ax = group_sum<G>(ax);

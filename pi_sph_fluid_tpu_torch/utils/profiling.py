@@ -21,8 +21,10 @@
   launch of one CUDA kernel, and ``call_device_ms(fn, device)`` the same
   for a whole library call;
 * ``covered(starts, lens, L)``: the distinct rows of [0, L) that a set of
-  windows touches, and ``bound(nbytes, flops)``: the least time the card
-  could take for them (the H100 SXM peaks), for a kernel's roofline;
+  windows touches, ``pairs_in_reach(pk, b_geo, spans, cfg, spec)``: the
+  (query, lane) pairs of a relayout within 2H, and ``bound(nbytes,
+  flops)``: the least time the card could take for them (the H100 SXM
+  peaks), for a kernel's roofline;
 * ``trace(path)``: a ``torch.profiler`` session around a block, written to
   ``path`` as a Chrome trace (chrome://tracing, Perfetto);
   ``device_memory()``: each card's bytes in use, peak and limit.
@@ -57,12 +59,14 @@ from ..models.boundary import prepare_boundary
 from ..models.engine_v3 import WindowEngine
 from ..models.scene import build_pool_scene
 from ..ops.grid import cell_ids, csr_starts
+from ..ops.window import window_kernels as wk
 from ..ops.window.triple import block_spans, build_frame, start_grid
 from ..render.metaballs_window import WindowRenderer
 
 __all__ = ["pool_engine", "resolve_device", "throughput", "device_breakdown",
            "event_ms", "wall_ms", "timed",
-           "host_us", "kernel_device_ms", "call_device_ms", "covered", "bound",
+           "host_us", "kernel_device_ms", "call_device_ms", "covered",
+           "pairs_in_reach", "bound",
            "trace", "device_memory", "PEAK_BYTES", "PEAK_FLOPS"]
 
 G = (0.0, -9.81)
@@ -255,6 +259,27 @@ def covered(starts: torch.Tensor, lens: torch.Tensor, L: int) -> int:
     delta.index_add_(0, s, torch.ones_like(s))
     delta.index_add_(0, s + n, -torch.ones_like(s))
     return int((torch.cumsum(delta, 0)[:L] > 0).sum())
+
+
+def pairs_in_reach(pk, b_geo, spans, cfg, spec) -> int:
+    """(query, lane) pairs of these inputs whose candidate lies within the
+    support radius 2H of the query, r^2 < (2H)^2 in float32: the lanes whose
+    term is not 0.  Counted over the lanes the kernels compute (the plain
+    versions' own lane table), in the plain versions' chunks of blocks."""
+    n_blocks, qb = spec.n_layout // spec.qb, spec.qb
+    xy = torch.cat([pk[:, 0:2], b_geo[:, 0:2]])
+    reach2 = (2.0 * cfg.h) ** 2
+    step, pairs = wk._chunk(spec), 0
+    for b0 in range(0, n_blocks, step):
+        b1 = min(b0 + step, n_blocks)
+        idx, valid = wk._span_lanes(spans, b0, b1, spec.cap, spec.n_layout,
+                                    b_geo.shape[0])
+        cand = xy[idx]                                      # (nb, lanes, 2)
+        q = pk[b0 * qb:b1 * qb, 0:2].reshape(b1 - b0, qb, 1, 2)
+        d = q - cand[:, None]
+        near = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) < reach2
+        pairs += int((near & valid[:, None, :]).sum())
+    return pairs
 
 
 def bound(nbytes: int, flops: int) -> dict:

@@ -163,7 +163,7 @@ def test_port_imports_no_jax_and_cpu_path_launches_nothing():
         "from pi_sph_fluid_tpu_torch.render import metaballs, metaballs_window as mw\n"
         "from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp\n"
         "from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up\n"
-        "from pi_sph_fluid_tpu_torch.tools import launch_probe\n"
+        "from pi_sph_fluid_tpu_torch.tools import forces_probe, launch_probe\n"
         "from pi_sph_fluid_tpu_torch.tools import (cfl_probe, dd_probe, dynamic_stale_probe,\n"
         "                                          frames_to_gif, render_probe)\n"
         "from pi_sph_fluid_tpu_torch.utils import profiling, stats\n"

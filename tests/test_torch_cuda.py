@@ -14,7 +14,7 @@ from pi_sph_fluid_tpu_torch import SPHConfig, build_drop_scene, prepare_boundary
 from pi_sph_fluid_tpu_torch.models.engine_v3 import PackedSim, WindowEngine
 from pi_sph_fluid_tpu_torch.ops.window import relayout as rl
 from pi_sph_fluid_tpu_torch.ops.window import window_kernels as wk
-from pi_sph_fluid_tpu_torch.ops.window.triple import Frame
+from pi_sph_fluid_tpu_torch.ops.window.triple import Frame, TripleSpec
 from pi_sph_fluid_tpu_torch.render import metaballs_window as mw
 from pi_sph_fluid_tpu_torch.tools import span_dma_probe as sp
 from pi_sph_fluid_tpu_torch.tools import unaligned_probe as up
@@ -145,6 +145,96 @@ def test_forces_kernel_non_finite_candidate(poison):
     assert int((far & ~want).sum()) > 0     # where the plain version differs
     acc_bad = run(wk.forces_window, pk_bad, g8_bad)
     assert torch.equal(acc_bad[far], clean[far])
+
+
+@pytest.mark.cuda
+def test_forces_kernel_launches_are_bitwise_repeatable(pool_frame):
+    """Two launches of the forces kernel on the same inputs give the same
+    acc and pk_next bit for bit: each thread adds its lanes in lane order
+    and the group's shuffle tree is fixed, whatever the warps' timing."""
+    eng, pk, ctx = pool_frame
+    g8, rp = wk.density_window(pk, eng._b_geo_d, ctx.spans, eng.cfg, eng.spec)
+    args = (pk, g8, rp, eng._b_geo_f, ctx.spans, G, eng.cfg, eng.spec,
+            eng.half_dt, 0.97)
+    one, two = wk.forces_window(*args), wk.forces_window(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# Hand-built windows of the forces kernel (G = 4 threads a query, lane j
+# to thread j mod 4; a thread's lanes of a 256-lane chunk are tested for
+# reach 8 at a time and walked two at a time): {case: (window lanes, lanes
+# in reach, lane whose x is NaN or None)}
+HAND_WINDOWS = {
+    # threads 0..3 hold 2, 3, 0 and 5 lanes in reach
+    "odd_count": (40, (0, 4, 1, 5, 9, 3, 7, 11, 15, 19), None),
+    # threads 2 and 3 hold none
+    "thread_without": (60, (0, 4, 1), None),
+    # lane 255 is thread 3's 64th lane of the chunk, the mask's top bit
+    "last_of_chunk": (256, (255,), None),
+    # two chunks; lanes in reach on both sides of a thread's test batch
+    # (thread g's lanes g + 28 and g + 32) and of the chunk's end
+    "straddle": (400, (28, 32, 29, 33, 37, 30, 34, 251, 252, 255, 256, 259,
+                       284, 288, 399), None),
+    # lane 9 (thread 1's third) at x = NaN beside finite lanes in reach
+    "nan_position": (40, (0, 4, 1, 5, 13, 3), 9),
+}
+
+
+def _hand_window(n_lanes, near, nan_lane, device):
+    """forces_window's arguments for one hand-built window: block 0's 16
+    queries within 0.03 H of a point P, its window one fluid span of
+    ``n_lanes`` rows from row 64; lane j lies 0.3-1.2 H above and right of
+    P (in reach of every query, no term cancelling another) if j is in
+    ``near``, else 3-4 H away.  The other blocks' spans are empty."""
+    cfg = SPHConfig()
+    spec = TripleSpec(tq=256, qb=16, cap=1024, seg_q=2, n_layout=1024, L=0)
+    rng = np.random.default_rng(11)
+    h, p0 = cfg.h, np.float32([1.0, 1.0])
+    pk = np.zeros((spec.n_layout, 8), np.float32)
+    pk[:, 4] = cfg.particle_mass
+    pk[:, 5:7] = (cfg.rho_0, 1000.0)
+    pk[:, 2:4] = rng.normal(0.0, 0.5, (spec.n_layout, 2))
+    pk[:16, 0:2] = p0 + rng.uniform(-0.02, 0.02, (16, 2)) * h
+    rows = np.arange(n_lanes)
+    off = np.where(np.isin(rows, near)[:, None],
+                   rng.uniform(0.3, 0.85, (n_lanes, 2)),
+                   rng.uniform(3.0, 4.0, (n_lanes, 2)))
+    pk[64:64 + n_lanes, 0:2] = p0 + off * h
+    if nan_lane is not None:
+        pk[64 + nan_lane, 0] = np.nan
+    geo8 = pk.copy()
+    geo8[:, 5:8] = (1e-3, 0.5 * cfg.rho_0, 0.5)
+    spans = np.zeros((spec.n_layout // spec.qb, spec.n_spans, 2), np.int32)
+    spans[0, 0] = (64, n_lanes)
+    b_geo_f = np.zeros((4, 8), np.float32)
+    b_geo_f[:, 7] = 1.0
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return (t(pk), t(geo8), t(pk[:, 5:7].copy()), t(b_geo_f), t(spans), G, cfg,
+            spec, 0.5 * cfg.dt, 0.97)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(HAND_WINDOWS))
+def test_forces_kernel_hand_windows(case):
+    """Windows that put lanes in reach where the kernel's walk over a
+    thread's lanes turns: an odd count, none, the chunk's last lane alone,
+    across a test batch and a chunk, and a NaN position beside finite lanes
+    (it poisons every query of its window, as in the plain version).  acc
+    within the module's rtol 2e-5 / atol 2e-4 of the plain version (NaN
+    where it is NaN), the copied pk_next columns bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    args = _hand_window(*HAND_WINDOWS[case], "cuda")
+    pkk, acck = wk.forces_window(*args)
+    pkp, accp = wk.forces_window_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(acck, accp, rtol=2e-5, atol=2e-4, equal_nan=True)
+    torch.testing.assert_close(pkk[:, [0, 1, 4, 5, 6, 7]], pkp[:, [0, 1, 4, 5, 6, 7]],
+                               rtol=0, atol=0, equal_nan=True)
+    poisoned = ~torch.isfinite(accp).all(1)
+    assert int(poisoned.sum()) == (16 if HAND_WINDOWS[case][2] is not None else 0)
 
 
 @pytest.mark.cuda
